@@ -7,20 +7,33 @@ Phases, each failing the run (non-zero exit, no result line):
   1. build the CUDA kernels from `sags_tpu_torch/csrc` (one nvcc per source,
      in parallel) and print the card's name and power limit;
   2. hold every kernel against its plain PyTorch version at the slice's
-     shapes (640x512 → 1280 tiles, K = 512 and 1024, P = 2^18 Gaussians of a
-     seeded random scene): fill_table exactly, composite_fused to 1e-3
-     absolute, composite_fused_bwd to 2e-4 relative per output row, and the
-     scattered dG bitwise equal across two backward runs; time each;
+     shapes (640x512 → 1280 tiles, P = 2^18 Gaussians of a seeded random
+     scene) and time each:
+     - classic path, K = 512 and 1024: fill_table exactly, composite_fused to
+       1e-3 absolute, composite_fused_bwd to 2e-4 relative per output row,
+       and the scattered dG bitwise equal across two backward runs;
+     - windowed path, K = 1024, windowed_chunk 512, R = 4, slice store on:
+       composite_windowed and composite_windowed_sorted to 1e-3 absolute
+       (nv exact), sort_blocks on [1280, 16, 128] random int32 exactly equal
+       to torch.sort, and the kernel-sort compositor bitwise equal to the
+       host-table one on every tile the 16-block window did not cut;
   3. drive `SLAMPipeline.run` (fused front-end, GICP tracking) at the
      pipeline bench's operating point for 32 warm + 16 timed frames and check
      finite, falling losses, the trajectory (ATE < 0.12 m over the first
      0.75 m of path, the bar of `tests/test_pipeline.py`, and within 5% of the
-     JAX package's ATE on the same scans over the whole run) and that every
-     kernel launched.
-The line before the last holds each kernel's launches on the main path, its
-time, its plain version's time and its bound at the tile capacity the loop
-ended with. The last stdout line is `{"ok": true, "device": {...}}`.
-Imports no JAX.
+     JAX package's ATE on the same scans over the whole run) and that its
+     kernels launched;
+  4. `SLAMPipeline.evaluate` of that map over every 6th frame at the
+     estimated poses, windowed with the host table (the default), windowed
+     with the kernel sort, and classic: PSNR / SSIM / LPIPS, coverage, and
+     the render's time; each windowed mode must launch its compositor, agree
+     with the plain functions on one frame (1e-3) and with the classic
+     render (PSNR between the two).
+Launch counts are zeroed just before each main path (the loop, each eval
+mode) and read just after. The line before the last holds each kernel's
+launches on its path, its time, its plain version's time, the library
+call's time and its bound. The last stdout line is
+`{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +58,8 @@ BWD_OPS_PER_PIXEL_PAIR = 190.0
 # depends on the scans only, so the port's loop must land on the same value
 REFERENCE_ATE_M = 0.19425298273563385
 ATE_BAR_M, ATE_BAR_PATH_M = 0.12, 0.75  # `tests/test_pipeline.py:71`
+SLAM_KERNELS = ("sags_fill_table", "sags_composite_fused", "sags_composite_fused_bwd")
+EVAL_EVERY = 6
 
 
 def emit(obj) -> None:
@@ -85,9 +100,10 @@ def random_scene(n: int, device, seed: int = 0):
 
 
 def live_pixel_pairs(G, table, counts, tiles_x, chunk, alpha_min, t_min) -> int:
-    """The (pixel, pair) evaluations this scene needs: pairs k < count that
-    meet a pixel whose transmittance can still take one, T (1 - alpha_min) >=
-    t_min. Pixels past that point, and whole tiles, cost the kernels nothing."""
+    """The (pixel, pair) evaluations this scene needs: pairs k < count (not
+    -1) that meet a pixel whose transmittance can still take one,
+    T (1 - alpha_min) >= t_min. Pixels past that point, and whole tiles, cost
+    the kernels nothing."""
     import torch
 
     from sags_tpu_torch.ops import composite
@@ -98,7 +114,7 @@ def live_pixel_pairs(G, table, counts, tiles_x, chunk, alpha_min, t_min) -> int:
     rank = torch.arange(K, device=G.device)
     total = 0
     for c0 in range(0, K, chunk):
-        vm = rank[None, c0:c0 + chunk] < counts[:, None]
+        vm = (rank[None, c0:c0 + chunk] < counts[:, None]) & (table[:, c0:c0 + chunk] >= 0)
         Gc = G[torch.clamp(table[:, c0:c0 + chunk], min=0).long()]
         _, _, _, _, _, om, _, m = composite._chunk_quants(Gc, vm, px, py, T,
                                                           alpha_min, t_min)
@@ -201,6 +217,150 @@ def kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H,
     return results
 
 
+def _sort_stages(n: int) -> int:
+    """Compare-exchange stages of a bitonic network over n keys."""
+    s = int(math.log2(n))
+    return s * (s + 1) // 2
+
+
+def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=1024):
+    """The windowed compositors and the block sort against their plain
+    versions at the kernel cell; the kernel sort against the host table."""
+    import dataclasses
+
+    import torch
+
+    from sags_tpu_torch.core.camera import make_camera
+    from sags_tpu_torch.core.config import RasterizeConfig
+    from sags_tpu_torch.ops import rasterize as rz
+    from sags_tpu_torch.ops import sort, windowed as win
+
+    xyz, opac, scales, quats, colors, objs = random_scene(P, device)
+    cam = make_camera(torch.eye(3, device=device), torch.zeros(3, device=device),
+                      width, height, 2 * math.atan(width / (2 * 431.8)),
+                      2 * math.atan(height / (2 * 431.8)))
+    tiles_x, tiles_y = width // 16, height // 16
+    NT = tiles_x * tiles_y
+    base = RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=K, windowed_chunk=512,
+                           windowed_big_capacity=128)
+    with torch.no_grad():
+        occ = {k: v.cpu().numpy() for k, v in
+               rz.windowed_occupancy(xyz, opac, scales, quats, cam, base).items()}
+        cfg = rz.derive_windowed_budgets(base, occ, P)
+        pre = rz.preprocess(xyz, opac, scales, quats, cam, cfg, colors=colors)
+        (G_s, _, tl, counts, bases, dests, nblks, n_binned, ov_rect, ov_tile, ov_win,
+         ov_big) = rz._prepare_windowed(pre, objs, tiles_x, tiles_y, cfg)
+    chunk = rz._windowed_chunk(cfg)
+    gate = dict(alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min)
+    kw = dict(gate, chunk=chunk, n_span=4)
+    out = {"window_blocks": cfg.window_blocks, "rows": int(G_s.shape[0]),
+           "n_binned": int(n_binned), "overflow_window": int(ov_win),
+           "overflow_big": int(ov_big), "overflow_tile": int(ov_tile)}
+
+    # -- composite_windowed: 1e-3 absolute on acc and T
+    args = (G_s, tl, counts, bases, dests, nblks, 16, tiles_x)
+    acc, T = win.composite_windowed(*args, **kw)
+    acc_p, T_p = win.composite_windowed_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(float((acc - acc_p).abs().max()), float((T - T_p).abs().max()))
+    assert err <= 1e-3, f"composite_windowed disagrees: {err}"
+    rows = win.window_rows(tl, bases, dests, nblks, 4)
+    kept = int((rows >= 0).sum())
+    n_rows = int(torch.unique(rows[rows >= 0]).numel())
+    pairs_px = float(live_pixel_pairs(G_s[:, :32], rows, counts, tiles_x, chunk, **gate))
+    out["composite_windowed"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: win.composite_windowed(*args, **kw), 20),
+        plain_ms=cuda_ms(lambda: win.composite_windowed_plain(*args, **kw), 2),
+        # each composited row's 32 columns once, the kept work list, the
+        # span plan and counts, acc + T out
+        bytes=128 * n_rows + 4 * kept + 4 * NT * (1 + 3 * 4) + 4 * NT * 256 * 25,
+        ops=FWD_OPS_PER_PIXEL_PAIR * pairs_px, live_pixel_pairs=pairs_px)
+    del acc_p, T_p
+
+    # -- composite_windowed_sorted at the largest window it sorts (16 blocks)
+    kcfg = dataclasses.replace(cfg, window_blocks=16, windowed_sort="kernel")
+    with torch.no_grad():
+        G2, b2, d2, n2, ss, se, _, ov_raw, _ = rz._prepare_windowed(
+            pre, objs, tiles_x, tiles_y, kcfg, build_table=False)
+    sargs = (G2, b2, d2, n2, ss, se, 16, tiles_x)
+    skw = dict(kw, w_blocks=16, k_tile=K)
+    acc_s, T_s, nv = win.composite_windowed_sorted(*sargs, **skw)
+    acc_sp, T_sp, nv_p = win.composite_windowed_sorted_plain(*sargs, **skw)
+    torch.cuda.synchronize()
+    assert torch.equal(nv, nv_p), "composite_windowed_sorted: nv disagrees"
+    err_s = max(float((acc_s - acc_sp).abs().max()), float((T_s - T_sp).abs().max()))
+    assert err_s <= 1e-3, f"composite_windowed_sorted disagrees: {err_s}"
+    del acc_sp, T_sp
+    keys = win.window_keys_plain(G2, b2, d2, n2, ss, se, 16, tiles_x, cfg.alpha_min, 4, 16)
+    order = torch.sort(keys, dim=1).values[:, :K]
+    ids = torch.where(order != win.KEY_INVALID, order & win.IDX_MASK,
+                      torch.full_like(order, -1))
+    srows = win.window_rows(ids, b2, d2, n2, 4)
+    scount = torch.clamp(nv, max=K)
+    n_comp = int(torch.unique(srows[srows >= 0]).numel())
+    # rows the windows read (in a span and in an allocated block)
+    delta = torch.zeros(G2.shape[0] + 1, dtype=torch.int64, device=device)
+    lo = ss.long()
+    hi = torch.minimum(se.long(), (b2.long() + n2.long()) * 128)
+    live = hi > lo
+    delta.index_add_(0, lo[live], torch.ones_like(lo[live]))
+    delta.index_add_(0, hi[live], -torch.ones_like(hi[live]))
+    n_span_rows = int((torch.cumsum(delta, 0)[:-1] > 0).sum())
+    spairs = float(live_pixel_pairs(G2[:, :32], srows, scount, tiles_x, chunk, **gate))
+    n_sort = 2048
+    ce = NT * (n_sort // 2) * _sort_stages(n_sort)
+    out["composite_windowed_sorted"] = dict(
+        max_abs_err=err_s, nv_exact=True,
+        ms=cuda_ms(lambda: win.composite_windowed_sorted(*sargs, **skw), 20),
+        plain_ms=cuda_ms(lambda: win.composite_windowed_sorted_plain(*sargs, **skw), 2),
+        # validity columns (11 floats) of every window row, the 24 features
+        # of every composited row, the span plan, acc + T + nv out
+        bytes=44 * n_span_rows + 96 * n_comp + 4 * NT * 5 * 4 + 4 * NT * (256 * 25 + 1),
+        # compositing, ~40 operations of key math per slot, and the sort's
+        # compare-exchanges (a min and a max each)
+        ops=FWD_OPS_PER_PIXEL_PAIR * spairs + 40.0 * NT * n_sort + 2.0 * ce,
+        live_pixel_pairs=spairs, compare_exchanges=ce, nv_total=int(nv.sum()),
+        overflow_window_raw=int(ov_raw))
+
+    # -- the kernel sort against the host table at the same 16-block budget:
+    # the same bits on every tile whose spans all fit the window
+    with torch.no_grad():
+        h = rz._prepare_windowed(pre, objs, tiles_x, tiles_y,
+                                 dataclasses.replace(cfg, window_blocks=16))
+    acc_h, T_h = win.composite_windowed(h[0], h[2], h[3], h[4], h[5], h[6], 16, tiles_x,
+                                        **kw)
+    need = torch.where(se > ss, -torch.div(b2 * 128 - se, 128, rounding_mode="floor"), 0)
+    uncut = (n2 == need).reshape(NT, 4).all(dim=1)
+    n_uncut = int(uncut.sum())
+    assert n_uncut > 0, "every tile's window was cut"
+    assert torch.equal(acc_h[uncut], acc_s[uncut]) and torch.equal(T_h[uncut], T_s[uncut]), \
+        "kernel sort and host table differ on an uncut tile"
+    out["kernel_sort_bitwise_tiles"] = n_uncut
+
+    # -- sort_blocks on [1280, 16, 128] random int32: exactly torch.sort
+    g = torch.Generator(device=device).manual_seed(7)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (NT, 16, 128), generator=g, device=device,
+                      dtype=torch.int64).to(torch.int32)
+    assert torch.equal(sort.sort_blocks(x), sort.sort_blocks_plain(x)), \
+        "sort_blocks disagrees with torch.sort"
+    flat = x.reshape(NT, -1)
+    out["sort_blocks"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: sort.sort_blocks(x), 50),
+        plain_ms=cuda_ms(lambda: sort.sort_blocks_plain(x), 50),
+        library_ms=cuda_ms(lambda: torch.sort(flat, dim=1), 50),
+        bytes=8 * x.numel(), ops=2.0 * ce, compare_exchanges=ce)
+    emit({"phase": "windowed_kernels", "tile_capacity": K,
+          "window_blocks_host": cfg.window_blocks, "rows": out["rows"],
+          "n_binned": out["n_binned"], "overflow_window_host": out["overflow_window"],
+          "overflow_big": out["overflow_big"], "overflow_tile": out["overflow_tile"],
+          "composite_windowed_max_abs_err": err,
+          "composite_windowed_sorted_max_abs_err": err_s, "nv_exact": True,
+          "nv_total": int(nv.sum()), "overflow_window_raw_16_blocks": int(ov_raw),
+          "kernel_sort_bitwise_tiles": n_uncut, "tiles": NT, "sort_blocks_exact": True})
+    return out
+
+
 def slam_setup(device, n_frames, width=SLICE_W, height=SLICE_H, n_world=65536,
                points=4096, capacity=2 ** 18):
     """The pipeline bench's operating point (`bench.py:bench_pipeline`):
@@ -288,9 +448,130 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
     assert last_mean < first_mean, (first_mean, last_mean)
     assert ate_near < ATE_BAR_M, f"ATE {ate_near} m over the first {ATE_BAR_PATH_M} m"
     assert ate <= 1.05 * REFERENCE_ATE_M, f"ATE {ate} m, reference {REFERENCE_ATE_M} m"
-    for sym, n in launches.items():
-        assert n > 0, f"{sym} never launched on the main path"
-    return launches, pipe.cfg.raster.tile_capacity
+    for sym in SLAM_KERNELS:
+        assert launches[sym] > 0, f"{sym} never launched in the SLAM loop"
+    return launches, pipe, frames, poses
+
+
+def eval_phase(device, pipe, frames, poses):
+    """`SLAMPipeline.evaluate` of the loop's map at the estimated poses, in
+    three render modes; each windowed compositor checked on one frame."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.eval.metrics import psnr
+    from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.ops import rasterize as rz
+    from sags_tpu_torch.ops import windowed as win
+    from sags_tpu_torch.slam import step as slam_step
+
+    base_cfg = pipe.cfg
+    r = base_cfg.raster
+    modes = {
+        # the default: windowed, host table, budgets from the probe
+        "windowed_host": (r, True),
+        # the in-kernel sort takes at most 16 window blocks: its own budget
+        "windowed_kernel": (dataclasses.replace(
+            r, windowed_sort="kernel", window_blocks=16,
+            tile_capacity=max(r.tile_capacity, r.tile_capacity_max)), False),
+        "classic": (dataclasses.replace(r, windowed=False), False),
+    }
+    must_launch = {"windowed_host": ("sags_composite_windowed", "sags_fill_table"),
+                   "windowed_kernel": ("sags_composite_windowed_sorted",),
+                   "classic": ("sags_composite_fused", "sags_fill_table")}
+    idx = list(range(0, len(frames), EVAL_EVERY))
+    cams = [pipe._camera_for(frames[i], poses[i]) for i in idx]
+    results, renders = {}, {}
+    for mode, (raster, derive) in modes.items():
+        pipe.cfg = base_cfg.replace(raster=raster)
+        try:
+            _build.reset_launch_counts()
+            scores = pipe.evaluate(frames, every=EVAL_EVERY, poses=poses,
+                                   derive_budgets=derive)
+            torch.cuda.synchronize()
+            launches = {k.symbol: k.launches for k in _build.kernels()}
+            cfg = pipe.eval_config(derive)
+        finally:
+            pipe.cfg = base_cfg
+        for sym in must_launch[mode]:
+            assert launches[sym] > 0, f"{sym} never launched in the {mode} eval"
+        with torch.no_grad():
+            outs = [slam_step.render_map(pipe.state.map, c, cfg) for c in cams]
+            ms = cuda_ms(lambda: [slam_step.render_map(pipe.state.map, c, cfg)
+                                  for c in cams], 1) / len(cams)
+        renders[mode] = [o.color for o in outs]
+        counters = {f: float(np.mean([int(getattr(o, f)) for o in outs])) for f in (
+            "overflow_tile", "overflow_rect", "overflow_window", "overflow_big",
+            "tile_peak")}
+        vals = {k: [s[k] for s in scores] for k in ("psnr", "ssim", "lpips",
+                                                     "overflow_pairs", "n_binned")}
+        assert all(np.isfinite(vals[k]).all() for k in ("psnr", "ssim", "lpips"))
+        results[mode] = {
+            "frames": len(scores), "psnr": float(np.mean(vals["psnr"])),
+            "ssim": float(np.mean(vals["ssim"])), "lpips": float(np.mean(vals["lpips"])),
+            "lpips_net": scores[0]["lpips_net"],
+            "overflow_pairs": int(np.sum(vals["overflow_pairs"])),
+            "overflow_pairs_per_frame": vals["overflow_pairs"],
+            "n_binned_per_frame": float(np.mean(vals["n_binned"])),
+            "ms_per_eval_render": ms,
+            "launches": launches,
+            "launches_per_frame": {k: v / len(scores) for k, v in launches.items()},
+            "counters_per_frame": counters,
+            "window_blocks": cfg.raster.window_blocks,
+            "tile_capacity": cfg.raster.tile_capacity,
+            "max_tiles_per_gaussian": cfg.raster.max_tiles_per_gaussian,
+            "windowed_big_capacity": cfg.raster.windowed_big_capacity,
+        }
+    for mode in ("windowed_host", "windowed_kernel"):
+        results[mode]["psnr_vs_classic"] = float(np.mean(
+            [psnr(a, b, mask_zeros=False) for a, b in
+             zip(renders[mode], renders["classic"])]))
+    assert all(r["n_binned_per_frame"] > 0 for r in results.values())
+
+    # one frame: the CUDA compositors against the plain functions on the
+    # inputs the render prepared
+    m = pipe.state.map
+    cam = cams[len(cams) // 2]
+    tiles_x, tiles_y = -(-cam.width // 16), -(-cam.height // 16)
+    checks = {}
+    for mode in ("windowed_host", "windowed_kernel"):
+        raster, derive = modes[mode]
+        pipe.cfg = base_cfg.replace(raster=raster)
+        try:
+            rc = pipe.eval_config(derive).raster
+        finally:
+            pipe.cfg = base_cfg
+        kw = dict(alpha_min=rc.alpha_min, t_min=rc.transmittance_min,
+                  chunk=rz._windowed_chunk(rc),
+                  n_span=int(round(rc.max_tiles_per_gaussian ** 0.5)))
+        with torch.no_grad():
+            pre = rz.preprocess(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
+                                gm.get_rotation(m), cam, rc, shs=gm.get_shs(m),
+                                sh_degree=base_cfg.map.sh_degree, active_mask=m.active)
+            if mode == "windowed_host":
+                G_s, _, tl, counts, b, d, n, *_ = rz._prepare_windowed(
+                    pre, m.obj_dc, tiles_x, tiles_y, rc)
+                got = win.composite_windowed(G_s, tl, counts, b, d, n, 16, tiles_x, **kw)
+                want = win.composite_windowed_plain(G_s, tl, counts, b, d, n, 16, tiles_x,
+                                                    **kw)
+            else:
+                G_s, b, d, n, ss, se, *_ = rz._prepare_windowed(
+                    pre, m.obj_dc, tiles_x, tiles_y, rc, build_table=False)
+                skw = dict(kw, w_blocks=rc.window_blocks, k_tile=rc.tile_capacity)
+                got = win.composite_windowed_sorted(G_s, b, d, n, ss, se, 16, tiles_x, **skw)
+                want = win.composite_windowed_sorted_plain(G_s, b, d, n, ss, se, 16,
+                                                           tiles_x, **skw)
+                assert torch.equal(got[2], want[2]), "eval frame: nv disagrees"
+        torch.cuda.synchronize()
+        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        assert err <= 1e-3, f"{mode} eval frame: {err} against the plain version"
+        checks[mode] = err
+    emit({"phase": "eval", "every": EVAL_EVERY, "modes": results,
+          "frame_check_max_abs_err": checks})
+    return results
 
 
 def main() -> int:
@@ -301,7 +582,7 @@ def main() -> int:
         return 2
     from sags_tpu_torch import resolve_device
     from sags_tpu_torch.ops import _build
-    from sags_tpu_torch.ops import binning, composite  # noqa: F401  (register kernels)
+    from sags_tpu_torch.ops import binning, composite, sort, windowed  # noqa: F401  (register kernels)
 
     device = resolve_device("cuda")
     t0 = time.perf_counter()
@@ -317,10 +598,15 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
 
     kres = kernel_phase(device)
-    launches, K_final = slam_phase(device)
+    wres = windowed_kernel_phase(device)
+    launches, pipe, frames, poses = slam_phase(device)
+    K_final = pipe.cfg.raster.tile_capacity
     if K_final not in kres:
         kres.update(kernel_phase(device, capacities=(K_final,)))
+    eres = eval_phase(device, pipe, frames, poses)
+    n_frames = len(frames)
 
+    # (source, TPU kernel, C symbol, the path whose launches count, frames on it)
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
                           "sags_tpu/ops/pallas_binning.py:75", "sags_fill_table"),
            "composite_fused": ("sags_tpu_torch/csrc/composite_fused.cu",
@@ -328,26 +614,50 @@ def main() -> int:
                                "sags_composite_fused"),
            "composite_fused_bwd": ("sags_tpu_torch/csrc/composite_fused_bwd.cu",
                                    "sags_tpu/ops/pallas_composite.py:318",
-                                   "sags_composite_fused_bwd")}
+                                   "sags_composite_fused_bwd"),
+           "composite_windowed": ("sags_tpu_torch/csrc/composite_windowed.cu",
+                                  "sags_tpu/ops/pallas_windowed.py:568",
+                                  "sags_composite_windowed"),
+           "composite_windowed_sorted": ("sags_tpu_torch/csrc/composite_windowed_sorted.cu",
+                                         "sags_tpu/ops/pallas_windowed.py:828",
+                                         "sags_composite_windowed_sorted"),
+           "sort_blocks": ("sags_tpu_torch/csrc/sort_blocks.cu",
+                           "sags_tpu/ops/pallas_sort.py:89", "sags_sort_blocks")}
+    path_of = {"fill_table": "slam", "composite_fused": "slam",
+               "composite_fused_bwd": "slam", "composite_windowed": "windowed_host",
+               "composite_windowed_sorted": "windowed_kernel",
+               # its network runs inside composite_windowed_sorted; the
+               # standalone kernel is the block sort's harness
+               "sort_blocks": "windowed_kernel"}
     kernels = []
     for name, (path, replaces, sym) in src.items():
-        r = kres[K_final][name]
+        r = kres[K_final][name] if name in kres[K_final] else wres[name]
         t_bytes = r["bytes"] / PEAK_BYTES_S * 1e3
         t_ops = r["ops"] / PEAK_FP32_S * 1e3
+        on = path_of[name]
+        if on == "slam":
+            n, per = launches[sym], launches[sym] / n_frames
+        else:
+            n = eres[on]["launches"][sym]
+            per = eres[on]["launches_per_frame"][sym]
         kernels.append({
             "name": name, "route": "cuda", "source": path, "replaces": replaces,
-            "launches": launches[sym], "max_abs_err": r["max_abs_err"],
+            "launches": n, "launches_per_frame": per, "path": on,
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
         })
     emit({"tile_capacity": K_final,
           "by_tile_capacity": {K: {n: {"ms": kres[K][n]["ms"], "plain_ms": kres[K][n]["plain_ms"]}
-                                   for n in src} for K in kres},
+                                   for n in ("fill_table", "composite_fused",
+                                             "composite_fused_bwd")} for K in kres},
           "scatter_ms": {K: kres[K]["scatter_ms"] for K in kres},
           "kept_pairs": {K: kres[K]["kept_pairs"] for K in kres},
-          "live_pixel_pairs": {K: kres[K]["live_pixel_pairs"] for K in kres}})
+          "live_pixel_pairs": {K: kres[K]["live_pixel_pairs"] for K in kres},
+          "windowed": {k: v for k, v in wres.items() if not isinstance(v, dict)},
+          "ms_per_eval_render": {m: e["ms_per_eval_render"] for m, e in eres.items()}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

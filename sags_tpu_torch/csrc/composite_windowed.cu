@@ -1,0 +1,88 @@
+// composite_windowed: front-to-back compositing of each tile's depth-ordered
+// work list of window-local ids (the windowed render path).
+//
+// Replaces the Pallas TPU kernel `composite_windowed` (`sags_tpu/ops/
+// pallas_windowed.py`, `_kernel` + `_select_and_composite`). Tile t
+// composites the first counts[t] entries of table_local[t, :] (-1 = empty),
+// each resolved through the tile's span plan (bases, dests, nblks) to a row
+// of the anchor-sorted store G_s [n_rows, row_stride]; columns 0..31 are
+// mx my ca cb cc op pad pad | 24 features. Outputs acc[t, p, 0:24] and
+// T[t, p].
+//
+// Bound: arithmetic, as composite_fused: each (pixel, pair) costs an exp and
+// ~50 flops; each pair's 128-byte row is read once per tile.
+// Design: one block per tile, one thread per pixel, the loop of windowed.cuh.
+// The TPU kernel's VMEM candidate window (14 blocks of 32x128 floats at the
+// default budget, 229 KB, beyond a Hopper block's 227 KB of shared memory;
+// up to 40 blocks after adaptation) is not reproduced: each id is resolved
+// through the <= 8 spans and its row gathered into shared memory, 32 rows
+// per round, which is what the window's select pass computes.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "windowed.cuh"
+
+namespace {
+
+struct TableIds {
+  const int32_t* row;
+  __device__ int operator()(int k) const { return row[k]; }
+};
+
+}  // namespace
+
+__global__ void __launch_bounds__(256)
+composite_windowed_kernel(const float* __restrict__ G, int row_stride,
+                          int n_rows, const int32_t* __restrict__ table_local,
+                          const int32_t* __restrict__ counts,
+                          const int32_t* __restrict__ bases,
+                          const int32_t* __restrict__ dests,
+                          const int32_t* __restrict__ nblks, int n_span, int K,
+                          int tile, int tiles_x, int tile_offset,
+                          float alpha_min, float t_min, int chunk,
+                          float* __restrict__ acc_out,
+                          float* __restrict__ T_out) {
+  __shared__ sagsw::Spans spans;
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  if (tid < n_span) {
+    spans.base[tid] = bases[t * n_span + tid];
+    spans.dest[tid] = dests[t * n_span + tid];
+    spans.nblk[tid] = nblks[t * n_span + tid];
+  }
+  if (tid == 0) spans.n = n_span;
+  __syncthreads();
+  const int tg = t + tile_offset;  // global tile id (pixel coordinates)
+  const float px = (float)((tg % tiles_x) * tile + tid % tile);
+  const float py = (float)((tg / tiles_x) * tile + tid / tile);
+  const TableIds ids{table_local + (size_t)t * K};
+  const int count = min(counts[t], K);
+  const int PIX = blockDim.x;
+  sagsw::composite_window(G, row_stride, n_rows, ids, count, spans, px, py,
+                          alpha_min, t_min, chunk,
+                          acc_out + (size_t)t * PIX * sagsw::CF,
+                          T_out + (size_t)t * PIX);
+}
+
+extern "C" int sags_composite_windowed(
+    const void* G, int row_stride, int n_rows, const void* table_local,
+    const void* counts, const void* bases, const void* dests, const void* nblks,
+    int n_span, int num_tiles, int K, int tile, int tiles_x, int tile_offset,
+    float alpha_min, float t_min, int chunk, void* acc_out, void* T_out,
+    void* stream) {
+  if (n_span < 1 || n_span > sagsw::MAX_SPAN || chunk < 1) return (int)cudaErrorInvalidValue;
+  if (num_tiles > 0) {
+    composite_windowed_kernel<<<num_tiles, tile * tile, 0,
+                                (cudaStream_t)stream>>>(
+        (const float*)G, row_stride, n_rows, (const int32_t*)table_local,
+        (const int32_t*)counts, (const int32_t*)bases, (const int32_t*)dests,
+        (const int32_t*)nblks, n_span, K, tile, tiles_x, tile_offset,
+        alpha_min, t_min, chunk, (float*)acc_out, (float*)T_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* sags_composite_windowed_error(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -3,8 +3,9 @@
 Each source is compiled by its own `nvcc` process into a shared library with
 a plain C interface (no PyTorch headers: seconds, not minutes), all of them
 started together, and loaded with `ctypes`. Libraries are named by a hash of
-their source and flags under `build/kernels/` at the repository root, so a
-rebuilt checkout never loads a stale one. Nothing is built or loaded at
+their source, every header it includes from `csrc/` (`#include "..."`,
+followed through headers), and the flags, under `build/kernels/` at the
+repository root, so an edited source or header never loads a stale one. Nothing is built or loaded at
 import time: the first launch (or `build_all()`) does it.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,9 +42,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: str) -> List[str]:
+    """`source` and the `csrc/` headers it includes, directly or through
+    other headers, in a fixed order."""
+    found, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in found:
+            continue
+        found.append(name)
+        with open(os.path.join(CSRC, name), "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                inc = inc.decode()
+                if os.path.exists(os.path.join(CSRC, inc)):
+                    todo.append(inc)
+    return found
+
+
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in source_files(source):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -1,5 +1,6 @@
 """The per-tile work table fill: CUDA kernel `csrc/fill_table.cu` and its
-plain PyTorch version.
+plain PyTorch version; and the exact alpha cull that decides which
+(Gaussian, tile) pairs are binned at all.
 
 Port of `sags_tpu/ops/pallas_binning.py:fill_table`. After the (tile, depth)
 sort each tile's Gaussian ids form a contiguous segment of the sorted list;
@@ -18,6 +19,43 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("fill_table.cu", "sags_fill_table",
                     [_P, _I, _P, _I, _I, _P, _P])
+
+
+def tile_qmin(a, b, c_, mx, my, tx, ty, T):
+    """Exact minimum of the conic quadratic over a tile's pixel box.
+
+    Every step is one rounded float32 operation in a fixed order, which
+    `csrc/composite_windowed_sorted.cu` repeats with `__f*_rn` intrinsics:
+    the in-kernel depth sort must bin exactly the pairs the host sort bins."""
+    x0 = tx * T - mx
+    x1 = tx * T + (T - 1.0) - mx
+    y0 = ty * T - my
+    y1 = ty * T + (T - 1.0) - my
+    inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
+    a_s = torch.clamp(a, min=1e-12)
+    c_s = torch.clamp(c_, min=1e-12)
+
+    def q_edge_x(xf):
+        dy = torch.minimum(torch.maximum(-b * xf / c_s, y0), y1)
+        return a * xf * xf + 2.0 * b * xf * dy + c_ * dy * dy
+
+    def q_edge_y(yf):
+        dx = torch.minimum(torch.maximum(-b * yf / a_s, x0), x1)
+        return a * dx * dx + 2.0 * b * dx * yf + c_ * yf * yf
+
+    qmin = torch.minimum(torch.minimum(q_edge_x(x0), q_edge_x(x1)),
+                         torch.minimum(q_edge_y(y0), q_edge_y(y1)))
+    return torch.where(inside, torch.zeros_like(qmin), qmin)
+
+
+def cull_c2(opacities: torch.Tensor, alpha_min: float) -> torch.Tensor:
+    """Alpha-gate level in conic-q units: q > c² ⟺ alpha < α_min. The
+    divisor is a tensor: PyTorch divides a CUDA tensor by a Python scalar as
+    a product with its reciprocal, one rounding away from the quotient."""
+    op = opacities.detach()
+    am = torch.full((), alpha_min, dtype=op.dtype, device=op.device)
+    return (torch.clamp(2.0 * torch.log(torch.clamp(op / am, min=1e-12)), min=0.0)
+            * (1.0 + 1e-5) + 1e-6)
 
 
 def fill_table_plain(gid_sorted: torch.Tensor, starts: torch.Tensor,

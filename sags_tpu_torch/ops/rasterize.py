@@ -1,20 +1,31 @@
-"""Differentiable tiled Gaussian rasterizer — the classic path of
-`sags_tpu.ops.rasterize` in PyTorch.
+"""Differentiable tiled Gaussian rasterizer — `sags_tpu.ops.rasterize` in
+PyTorch.
 
 Stages, as in the JAX package:
   1. `preprocess`: frustum cull, Σ3D from (scale, quat), EWA projection with
      the +0.3 px low-pass, conic, 3σ radius, the tight alpha-cull tile rect,
      SH degree-0 colour — longhand over [P] columns so the arithmetic order
      (and the 16-bit depth keys) match the JAX package.
-  2. `bin_gaussians`: R×R offset-window pair expansion, one (tile<<16 | dq,
-     gid) sort, `searchsorted` segment starts, then the table fill — the
-     CUDA kernel `fill_table` (`ops/binning.py`).
-  3. `composite`: the fused compositor forward and backward (CUDA kernels in
-     `ops/composite.py`) under a `torch.autograd.Function`, the per-pair
-     gradients scattered into dG deterministically.
+  2. Binning and compositing, by one of two paths:
+     * classic (training): `bin_gaussians` expands pairs over the R×R offset
+       window, sorts (tile<<16 | dq, gid) once and fills the table with the
+       CUDA kernel `fill_table` (`ops/binning.py`); `composite` runs the
+       fused compositor forward and backward (CUDA kernels in
+       `ops/composite.py`) under a `torch.autograd.Function`, the per-pair
+       gradients scattered into dG deterministically;
+     * windowed (rendering, the default when the shapes allow it):
+       `_prepare_windowed` sorts the packed rows by (anchor tile, depth),
+       adds slice-store copies of wide Gaussians, and either builds the
+       window-local work list from a tiered pair sort (`windowed_sort =
+       "host"`, CUDA kernels `fill_table` and `composite_windowed`) or
+       leaves the depth order to the kernel (`"kernel"`,
+       `composite_windowed_sorted`); see `ops/windowed.py`.
 
-The windowed render path (`ops/pallas_windowed.py` on the TPU) belongs to a
-later slice of the port: asking for it raises.
+The windowed path is forward-only here: its backward (`composite_windowed_bwd`
+on the TPU) is a later slice of the port and raises. `scan_impl` and
+`window_prefetch` are accepted and have no effect (TPU formulations of the
+same arithmetic); `ewa_impl="quad"`, `feature_precision` other than
+"highest", `window_ablate` and `windowed_bf16` raise.
 """
 
 from __future__ import annotations
@@ -29,7 +40,8 @@ from sags_tpu_torch.core.camera import Camera, ndc2pix
 from sags_tpu_torch.core.config import RasterizeConfig
 from sags_tpu_torch.core.transforms import quat_normalize
 from sags_tpu_torch.ops import composite as comp
-from sags_tpu_torch.ops.binning import fill_table
+from sags_tpu_torch.ops import windowed as win
+from sags_tpu_torch.ops.binning import cull_c2, fill_table, tile_qmin
 
 _G_HDR = comp.HDR
 
@@ -241,36 +253,6 @@ def _depth_quant(pre: Preprocessed) -> torch.Tensor:
     ).to(torch.int32)
 
 
-def _tile_qmin(a, b, c_, mx, my, tx, ty, T):
-    """Exact minimum of the conic quadratic over a tile's pixel box."""
-    x0 = tx * T - mx
-    x1 = tx * T + (T - 1.0) - mx
-    y0 = ty * T - my
-    y1 = ty * T + (T - 1.0) - my
-    inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
-    a_s = torch.clamp(a, min=1e-12)
-    c_s = torch.clamp(c_, min=1e-12)
-
-    def q_edge_x(xf):
-        dy = torch.minimum(torch.maximum(-b * xf / c_s, y0), y1)
-        return a * xf * xf + 2.0 * b * xf * dy + c_ * dy * dy
-
-    def q_edge_y(yf):
-        dx = torch.minimum(torch.maximum(-b * yf / a_s, x0), x1)
-        return a * dx * dx + 2.0 * b * dx * yf + c_ * yf * yf
-
-    qmin = torch.minimum(torch.minimum(q_edge_x(x0), q_edge_x(x1)),
-                         torch.minimum(q_edge_y(y0), q_edge_y(y1)))
-    return torch.where(inside, torch.zeros_like(qmin), qmin)
-
-
-def _cull_c2(opacities, cfg):
-    """Alpha-gate level in conic-q units: q > c² ⟺ alpha < α_min."""
-    return (torch.clamp(
-        2.0 * torch.log(torch.clamp(opacities.detach() / cfg.alpha_min, min=1e-12)),
-        min=0.0) * (1.0 + 1e-5) + 1e-6)
-
-
 def sort_pairs(pre: Preprocessed, tiles_x: int, tiles_y: int, cfg: RasterizeConfig):
     """Pair expansion over the static R×R offset window and the one
     (tile<<16 | dq, gid) sort. Returns (gid_sorted int32 [MT·P], starts
@@ -296,14 +278,14 @@ def sort_pairs(pre: Preprocessed, tiles_x: int, tiles_y: int, cfg: RasterizeConf
     T = float(cfg.tile)
     mx, my = pre.mx.detach(), pre.my.detach()
     qa, qb, qc = pre.ca.detach(), pre.cb.detach(), pre.cc.detach()
-    c2 = _cull_c2(pre.opacity, cfg)
+    c2 = cull_c2(pre.opacity, cfg.alpha_min)
     keys = []
     for j in range(MT):
         dx_j, dy_j = j % R, j // R
         ok = pre.valid & (dx_j < rect_w) & (dy_j < rect_h)
         tx = pre.rmin_x + dx_j
         ty = pre.rmin_y + dy_j
-        ok = ok & (_tile_qmin(qa, qb, qc, mx, my, tx, ty, T) <= c2)
+        ok = ok & (tile_qmin(qa, qb, qc, mx, my, tx, ty, T) <= c2)
         tile_id = ty * tiles_x + tx
         keys.append(torch.where(ok, (tile_id << 16) | dq,
                                 torch.full_like(dq, NT << 16)))
@@ -336,8 +318,16 @@ def bin_gaussians(pre: Preprocessed, tiles_x: int, tiles_y: int, cfg: RasterizeC
 # ---------------------------------------------------------------------------
 
 
-def _pack_gaussians(pre: Preprocessed, obj_features: torch.Tensor) -> torch.Tensor:
-    """[P, 32] rows: mx my ca cb cc op 0 0 | rgb obj(O) dz0 A B 1 | pad."""
+def _pack_gaussians(pre: Preprocessed, obj_features: torch.Tensor,
+                    extras: bool = False, pack_obj_bf16: bool = False) -> torch.Tensor:
+    """[P, 32] rows: mx my ca cb cc op 0 0 | rgb obj(O) dz0 A B 1 | pad.
+    `extras` appends the windowed path's columns 32..39 (`ops/windowed.py`
+    COL_*): rect min x/y, rect w/h and dq as exact small floats, rcull2,
+    two zero columns; gradient-free."""
+    if pack_obj_bf16:
+        raise NotImplementedError(
+            "windowed_bf16 (the bf16 obj-channel pack of the windowed render) "
+            "is not ported yet: ROADMAP.md A.8")
     O = obj_features.shape[-1]
     width = _G_HDR + 3 + O + 4
     width = -(-width // 8) * 8
@@ -350,6 +340,11 @@ def _pack_gaussians(pre: Preprocessed, obj_features: torch.Tensor) -> torch.Tens
     cols += [obj_features[:, i] for i in range(O)]
     cols += [dz0, A, B, torch.ones_like(dz0)]
     cols += [zero] * (width - len(cols))
+    if extras:
+        cols += [x.detach().to(torch.float32) for x in (
+            pre.rmin_x, pre.rmin_y, pre.rmax_x - pre.rmin_x, pre.rmax_y - pre.rmin_y,
+            _depth_quant(pre), pre.rcull2)]
+        cols += [zero.detach(), zero.detach()]
     return torch.stack(cols, dim=-1)
 
 
@@ -423,6 +418,455 @@ def contribution_mask(pre: Preprocessed, tiles_x: int, tiles_y: int,
     return used > 0
 
 
+# ---------------------------------------------------------------------------
+# Windowed path: anchor-sorted rows, span plan, window-local work list
+# ---------------------------------------------------------------------------
+
+
+def _stable_first(first: torch.Tensor) -> torch.Tensor:
+    """Indices with the `first` rows leading, each group in index order: the
+    JAX package's one-key sort of (where(first, 0, 1), iota)."""
+    return torch.sort(torch.where(first, 0, 1).to(torch.int32), stable=True).indices
+
+
+def _set_cols(x: torch.Tensor, col: int, vals) -> torch.Tensor:
+    """`x` with columns col, col+1, ... replaced by the [N] tensors `vals`."""
+    new = torch.stack([v.to(x.dtype) for v in vals], dim=-1)
+    return torch.cat([x[:, :col], new, x[:, col + len(vals):]], dim=1)
+
+
+def _spans(rowstart: torch.Tensor, tiles_x: int, NT: int, R: int, NB=None):
+    """The per-tile span plan: for anchor tile row j (tile rows ty-R+1 .. ty,
+    columns tx-R+1 .. tx) the span's rows [s, e) of the anchor-sorted store,
+    its 128-aligned first block, the blocks it needs and, under a window
+    budget of NB blocks, the blocks it gets and its first block in the
+    window. Yields (s, e, base, need, nblk, dest), one tuple per j."""
+    t = torch.arange(NT, device=rowstart.device, dtype=torch.int32)
+    ty, tx = t // tiles_x, t % tiles_x
+    col0 = torch.clamp(tx - (R - 1), min=0)
+    dest = torch.zeros_like(t)
+    for j in range(R):
+        row = ty - (R - 1) + j
+        rvalid = row >= 0
+        rowc = torch.clamp(row, min=0)
+        s = torch.where(rvalid, rowstart[(rowc * tiles_x + col0).long()], 0)
+        e = torch.where(rvalid, rowstart[(rowc * tiles_x + tx + 1).long()], 0)
+        base = torch.div(s, 128, rounding_mode="floor")
+        need = torch.where(e > s, -torch.div(base * 128 - e, 128, rounding_mode="floor"), 0)
+        nblk = need if NB is None else torch.minimum(need, NB - dest)
+        yield s, e, base, need, nblk, dest
+        dest = dest + nblk
+
+
+def _flat(cols) -> torch.Tensor:
+    """[NT] tensors, one per span → [NT·R] int32, tile-major."""
+    return torch.stack(cols, dim=1).reshape(-1).to(torch.int32)
+
+
+def _prepare_windowed(pre: Preprocessed, obj_features: torch.Tensor, tiles_x: int,
+                      tiles_y: int, cfg: RasterizeConfig, build_table: bool = True):
+    """Anchor-sort the packed rows (plus slice-store copies of wide
+    Gaussians), build the depth-ordered per-tile work list in window-local
+    ids, and the per-tile span plan (`sags_tpu.ops.rasterize.
+    _prepare_windowed`, every counter included).
+
+    Returns (G_s, table_global, table_local [NT, K/128, 128], counts, bases,
+    dests, nblks, n_binned, overflow_rect, overflow_tile, overflow_window,
+    overflow_big). With `build_table=False` (the in-kernel sort) there is
+    no pair expansion, pair sort or table: returns (G_s, bases, dests,
+    nblks, sstarts, sends, overflow_rect, overflow_window_raw, overflow_big),
+    where overflow_window_raw counts the span rows the block budget cut
+    (before the rect and alpha tests)."""
+    P = pre.mx.shape[0]
+    dev = pre.mx.device
+    MT = cfg.max_tiles_per_gaussian
+    R = int(round(MT ** 0.5))
+    if R * R != MT:
+        raise ValueError("max_tiles_per_gaussian must be a perfect square")
+    NB = cfg.window_blocks
+    K = cfg.tile_capacity
+    NT = tiles_x * tiles_y
+    if NT >= (1 << 15):
+        raise ValueError("tile<<16 key packing supports up to 32767 tiles")
+    i32 = torch.int32
+
+    rect_w_all = pre.rmax_x - pre.rmin_x
+    rect_h_all = pre.rmax_y - pre.rmin_y
+    dq = _depth_quant(pre)
+    G = _pack_gaussians(pre, obj_features, extras=True,
+                        pack_obj_bf16=bool(cfg.windowed_bf16))
+
+    # --- slice store: a Gaussian whose rect exceeds the R×R window is
+    # replicated as copy rows anchored every R tiles, each copy's rect
+    # columns patched to its ≤R×R slice; copies are ordinary rows of the
+    # anchor-sorted store
+    K_BIG = int(cfg.windowed_big_capacity)
+    R_STORE = int(cfg.windowed_store_max_rect)
+    use_store = K_BIG > 0 and R_STORE > R
+    parent_excl = torch.zeros(P, dtype=torch.bool, device=dev)
+    cover_side = torch.full((P,), R, dtype=i32, device=dev)
+    copy_rows, copy_keys = [], []
+    overflow_big0 = torch.zeros((), dtype=torch.int64, device=dev)
+    if use_store:
+        maxside = torch.maximum(rect_w_all, rect_h_all)
+        prev_cap = R
+        for cap_t, frac_t in cfg.windowed_store_fracs:
+            if cap_t <= R:
+                continue
+            cap_t = min(cap_t, R_STORE)
+            sel = pre.valid & (maxside > prev_cap) & (maxside <= cap_t)
+            prev_cap = cap_t
+            PBUF = min(max(int(P * frac_t) // 128 * 128, 128), P)
+            rank = torch.cumsum(sel.to(i32), 0) - 1
+            fits = sel & (rank < PBUF)
+            parent_excl = parent_excl | fits
+            cover_side = torch.where(fits, cap_t, cover_side)
+            # saturated parents fall back to R×R coverage; the pairs the tier
+            # would have covered count as big-tier overflow
+            lost = (torch.clamp(rect_w_all, max=cap_t) * torch.clamp(rect_h_all, max=cap_t)
+                    - torch.clamp(rect_w_all, max=R) * torch.clamp(rect_h_all, max=R))
+            overflow_big0 = overflow_big0 + torch.sum(torch.where(sel & ~fits, lost, 0))
+            idx = _stable_first(fits)[:PBUF]
+            rows = _set_cols(G[idx], win.COL_STORE, [torch.ones(PBUF, device=dev)])
+            bvalid = torch.arange(PBUF, device=dev) < torch.clamp(fits.sum(), max=PBUF)
+            rx, ry = pre.rmin_x[idx], pre.rmin_y[idx]
+            rw, rh = rect_w_all[idx], rect_h_all[idx]
+            dqi = dq[idx]
+            for gy in range(-(-cap_t // R)):
+                for gx in range(-(-cap_t // R)):
+                    vx, vy = gx * R, gy * R
+                    cval = bvalid & (vx < rw) & (vy < rh)
+                    copy_rows.append(_set_cols(rows, win.COL_RMIN_X, [
+                        rx + vx, ry + vy, torch.clamp(rw - vx, 0, R),
+                        torch.clamp(rh - vy, 0, R)]))
+                    anchor_c = torch.where(cval, (ry + vy) * tiles_x + (rx + vx), NT)
+                    copy_keys.append((anchor_c << 16) | dqi)
+        G = torch.cat([G] + copy_rows, dim=0)
+
+    # rect coverage of the parents (copies are the coverage); pairs already
+    # counted as big-tier overflow are not counted twice
+    covered = (torch.minimum(rect_w_all, cover_side) * torch.minimum(rect_h_all, cover_side))
+    overflow_rect = torch.sum(torch.where(pre.valid, rect_w_all * rect_h_all - covered, 0)) \
+        - overflow_big0
+
+    # --- anchor sort: rows grouped by rect-min tile, depth-ordered within;
+    # parents replaced by their copies sort past rowstart[NT] like culled rows
+    P_all = G.shape[0]
+    anchor = torch.where(pre.valid & ~parent_excl, pre.rmin_y * tiles_x + pre.rmin_x, NT)
+    akey = torch.cat([(anchor << 16) | dq] + copy_keys).to(i32)
+    akey_s, perm = torch.sort(akey, stable=True)
+    G_s = G[perm]
+    bounds = torch.arange(NT + 1, device=dev, dtype=i32) << 16
+    rowstart = torch.searchsorted(akey_s, bounds, out_int32=True)
+
+    if not build_table:
+        plan = [[] for _ in range(5)]
+        ov_raw = torch.zeros((), dtype=torch.int64, device=dev)
+        for s, e, base, _, nblk, dest in _spans(rowstart, tiles_x, NT, R, NB):
+            cov = torch.minimum(torch.clamp((base + nblk) * 128 - s, min=0), e - s)
+            ov_raw = ov_raw + torch.sum((e - s) - cov)
+            for lst, v in zip(plan, (base, dest, nblk, s, e)):
+                lst.append(v)
+        return (G_s, *(_flat(c) for c in plan), overflow_rect.to(i32), ov_raw.to(i32),
+                overflow_big0.to(i32))
+
+    # --- pair expansion over the sorted rows (payload = sorted row id).
+    # Tiers: a 2×2 window for every row, the 5 extra 3×3-ring offsets for
+    # MID rows (rect 3) from a windowed_mid_frac·P buffer, the R×R−4 extra
+    # offsets for BIG rows from a windowed_big_frac·P buffer, and a ring tier
+    # for slice-store copies; only the first windowed_expand_frac·P_all rows
+    # (live rows sort first) expand. Every cut is counted in overflow_big.
+    ef = float(cfg.windowed_expand_frac)
+    PE = P_all if ef >= 1.0 else min(-(-int(P_all * ef) // 128) * 128, P_all)
+    ex = G_s[:PE].detach()
+    iota = torch.arange(PE, device=dev, dtype=i32)
+
+    def icol(x, c):
+        return x[:, c].to(i32)
+
+    rminx, rminy = icol(ex, win.COL_RMIN_X), icol(ex, win.COL_RMIN_Y)
+    rectw, recth = icol(ex, win.COL_RECT_W), icol(ex, win.COL_RECT_H)
+    dq_s = icol(ex, win.COL_DQ)
+    valid_s = iota < rowstart[NT]
+    TT = float(cfg.tile)
+    overflow_big = overflow_big0
+    if PE < P_all:
+        exT = G_s[PE:].detach()
+        vT = torch.arange(PE, P_all, device=dev) < rowstart[NT]
+        overflow_big = overflow_big + torch.sum(torch.where(
+            vT, icol(exT, win.COL_RECT_W) * icol(exT, win.COL_RECT_H), 0))
+
+    def tier_keys(offs, exb, rx, ry, rw, rh, dqb, vmask):
+        mx, my = exb[:, 0], exb[:, 1]
+        qa, qb, qc = exb[:, 2], exb[:, 3], exb[:, 4]
+        c2 = cull_c2(exb[:, 5], cfg.alpha_min)
+        ks = []
+        for dx_j, dy_j in offs:
+            ok = vmask & (dx_j < rw) & (dy_j < rh)
+            tx = rx + dx_j
+            ty = ry + dy_j
+            ok = ok & (tile_qmin(qa, qb, qc, mx, my, tx, ty, TT) <= c2)
+            ks.append(torch.where(ok, ((ty * tiles_x + tx) << 16) | dqb, NT << 16))
+        return ks
+
+    is_copy = (ex[:, win.COL_STORE] > 0.0) if use_store else torch.zeros(
+        PE, dtype=torch.bool, device=dev)
+    keys, gids = [], []
+
+    def tier(sel_mask, offs, PBUF, cover_cap, base_cap=2, row_cap=None):
+        nonlocal overflow_big
+        PBUF = min(PBUF, PE)
+        cap = PBUF if row_cap is None else min(int(row_cap), PBUF)
+        rank = torch.cumsum(sel_mask.to(i32), 0) - 1
+        cov = torch.clamp(rectw, max=cover_cap) * torch.clamp(recth, max=cover_cap)
+        base2 = torch.clamp(rectw, max=base_cap) * torch.clamp(recth, max=base_cap)
+        overflow_big = overflow_big + torch.sum(
+            torch.where(sel_mask & (rank >= cap), cov - base2, 0))
+        idx = _stable_first(sel_mask)[:PBUF]
+        exb = ex[idx]
+        bvalid = torch.arange(PBUF, device=dev) < torch.clamp(sel_mask.sum(), max=cap)
+        keys.extend(tier_keys(offs, exb, icol(exb, win.COL_RMIN_X),
+                              icol(exb, win.COL_RMIN_Y), icol(exb, win.COL_RECT_W),
+                              icol(exb, win.COL_RECT_H), icol(exb, win.COL_DQ), bvalid))
+        gids.extend([idx.to(i32)] * len(offs))
+
+    RA = min(R, 2)
+    split_frac = float(cfg.windowed_base_split_frac)
+    if RA == 2 and split_frac > 0.0:
+        # every row gets its rect-min tile; the other three 2×2 offsets ride
+        # a compacted tier of the rows spanning more than one tile
+        keys.extend(tier_keys([(0, 0)], ex, rminx, rminy, rectw, recth, dq_s, valid_s))
+        gids.append(iota)
+        need2 = valid_s & ((rectw > 1) | (recth > 1))
+        PR = max(int(P_all * split_frac) // 128 * 128, 128)
+        tier(need2, [(1, 0), (0, 1), (1, 1)], PR, 2, base_cap=1)
+    else:
+        offs_a = [(x, y) for y in range(RA) for x in range(RA)]
+        keys.extend(tier_keys(offs_a, ex, rminx, rminy, rectw, recth, dq_s, valid_s))
+        gids.extend([iota] * len(offs_a))
+
+    n_copies = P_all - P
+    if R > 2:
+        beyond2 = valid_s & ((rectw > 2) | (recth > 2)) & ~is_copy
+        offs_m = [(x, y) for y in range(min(R, 3)) for x in range(min(R, 3))
+                  if not (x < 2 and y < 2)]
+        offs_b = [(x, y) for y in range(R) for x in range(R) if not (x < 2 and y < 2)]
+        PM = max(int(P * cfg.windowed_mid_frac) // 128 * 128, 128)
+        if R > 3:
+            tier(beyond2 & (rectw <= 3) & (recth <= 3), offs_m, PM, 3)
+            is_big = valid_s & ((rectw > 3) | (recth > 3)) & ~is_copy
+            PB = max(int(P * cfg.windowed_big_frac) // 128 * 128, 128)
+            tier(is_big, offs_b, PB, R)
+        else:  # R == 3: the mid ring is full coverage
+            tier(beyond2, offs_m, PM, 3)
+        if n_copies:
+            crf = float(cfg.windowed_copy_ring_frac)
+            NC_CAP = n_copies if crf >= 1.0 else max(int(n_copies * crf), 1)
+            tier(valid_s & is_copy & ((rectw > 2) | (recth > 2)),
+                 offs_b if R > 3 else offs_m, -(-NC_CAP // 128) * 128, R,
+                 row_cap=NC_CAP)
+
+    key = torch.cat([k.reshape(-1) for k in keys]).to(i32)
+    gid = torch.cat([g.reshape(-1) for g in gids]).to(i32)
+    if cfg.windowed_pair_sort == "stable":
+        key_s, order = torch.sort(key, stable=True)
+        idx_s = gid[order]
+    else:  # "lex": ties in (tile, dq) break by sorted-row id
+        combined = torch.sort((key.to(torch.int64) << 32) | gid.to(torch.int64)).values
+        key_s = (combined >> 32).to(i32)
+        idx_s = (combined & 0xFFFFFFFF).to(i32)
+    starts = torch.searchsorted(key_s, bounds, out_int32=True)
+    seg = starts[1:] - starts[:-1]
+    overflow_tile = torch.sum(torch.clamp(seg - K, min=0)).to(i32)
+    counts = torch.clamp(seg, max=K).to(i32)
+    table = fill_table(idx_s, starts, NT, K)
+
+    # --- window-local translation: the spans share one budget of NB blocks
+    # per tile, allocated by span length and numbered back to back
+    local = torch.full_like(table, -1)
+    matched = torch.zeros_like(table, dtype=torch.bool)
+    plan = [[] for _ in range(3)]
+    for s, e, base, _, nblk, dest in _spans(rowstart, tiles_x, NT, R, NB):
+        offs = table - base[:, None] * 128
+        m = (table >= s[:, None]) & (table < e[:, None]) & (offs < nblk[:, None] * 128)
+        local = torch.where(m, dest[:, None] * 128 + offs, local)
+        matched = matched | m
+        for lst, v in zip(plan, (base, dest, nblk)):
+            lst.append(v)
+    overflow_window = torch.sum((table >= 0) & ~matched).to(i32)
+    table_local = local.reshape(NT, K // 128, 128)
+    return (G_s, table, table_local, counts, *(_flat(c) for c in plan), starts[NT],
+            overflow_rect.to(i32), overflow_tile, overflow_window, overflow_big.to(i32))
+
+
+def windowed_occupancy(means3d, opacities, scales, quats, camera: Camera,
+                       cfg: RasterizeConfig, active_mask=None) -> dict:
+    """How many rows each windowed-path buffer needs for this scene and
+    camera (`sags_tpu.ops.rasterize.windowed_occupancy`): the selection of
+    `_prepare_windowed` without rows, pair sorts or features. Returns a dict
+    of int32 device scalars ("store" a [n_store_tiers] vector)."""
+    P = means3d.shape[0]
+    dev = means3d.device
+    tiles_x = -(-camera.width // cfg.tile)
+    tiles_y = -(-camera.height // cfg.tile)
+    NT = tiles_x * tiles_y
+    R = int(round(cfg.max_tiles_per_gaussian ** 0.5))
+    if R * R != cfg.max_tiles_per_gaussian:
+        raise ValueError("max_tiles_per_gaussian must be a perfect square")
+    i32 = torch.int32
+    pre = preprocess(means3d, opacities, scales, quats, camera, cfg,
+                     active_mask=active_mask)
+    rw = pre.rmax_x - pre.rmin_x
+    rh = pre.rmax_y - pre.rmin_y
+    maxside = torch.maximum(rw, rh)
+    use_store = int(cfg.windowed_big_capacity) > 0 and int(cfg.windowed_store_max_rect) > R
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    excl = torch.zeros(P, dtype=torch.bool, device=dev)
+    n_store, n_copy, n_ring, anchors = [], zero, zero, []
+    prev_cap = R
+    if use_store:
+        for cap_t, _ in cfg.windowed_store_fracs:
+            if cap_t <= R:
+                continue
+            cap_t = min(cap_t, int(cfg.windowed_store_max_rect))
+            sel = pre.valid & (maxside > prev_cap) & (maxside <= cap_t)
+            prev_cap = cap_t
+            n_store.append(sel.sum())
+            excl = excl | sel
+            for gy in range(-(-cap_t // R)):
+                for gx in range(-(-cap_t // R)):
+                    vx, vy = gx * R, gy * R
+                    cval = sel & (vx < rw) & (vy < rh)
+                    n_copy = n_copy + cval.sum()
+                    sw = torch.clamp(rw - vx, 0, R)
+                    sh = torch.clamp(rh - vy, 0, R)
+                    n_ring = n_ring + (cval & ((sw > 2) | (sh > 2))).sum()
+                    anc = (pre.rmin_y + vy) * tiles_x + (pre.rmin_x + vx)
+                    anchors.append(torch.where(cval, anc, NT))
+    pv = pre.valid & ~excl
+    n_mid = (pv & ((rw > 2) | (rh > 2)) & (rw <= 3) & (rh <= 3)).sum()
+    n_big = (pv & ((rw > 3) | (rh > 3))).sum()
+    anchors.append(torch.where(pv, pre.rmin_y * tiles_x + pre.rmin_x, NT))
+    hist = torch.bincount(torch.cat(anchors).long(), minlength=NT + 1)
+    rowstart = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                          torch.cumsum(hist[:NT], 0)])
+    need_total = sum(need for _, _, _, need, _, _ in _spans(rowstart, tiles_x, NT, R))
+    return {
+        "live_parents": pv.sum().to(i32),
+        "live_copies": n_copy.to(i32),
+        "n_mid": n_mid.to(i32),
+        "n_big": n_big.to(i32),
+        "n_ring": n_ring.to(i32),
+        "store": (torch.stack(n_store) if n_store else torch.zeros(0, device=dev)).to(i32),
+        "window_blocks_need": need_total.max().to(i32),
+        # widest live rect (tiles): the R the classic path needs
+        "max_rect_side": torch.where(pre.valid, maxside, 0).max().to(i32),
+    }
+
+
+def derive_windowed_budgets(cfg: RasterizeConfig, occ: dict, P: int,
+                            margin: float = 1.05) -> RasterizeConfig:
+    """A config whose windowed buffers hold ceil(margin × measured need) rows
+    (128-aligned where the buffer is) of a fetched `windowed_occupancy`
+    (`sags_tpu.ops.rasterize.derive_windowed_budgets`)."""
+    R = int(round(cfg.max_tiles_per_gaussian ** 0.5))
+    R_STORE = int(cfg.windowed_store_max_rect)
+    use_store = int(cfg.windowed_big_capacity) > 0 and R_STORE > R
+
+    def _need(n, align=128):
+        return max(-(-int(round(int(n) * margin)) // align) * align, align)
+
+    store = [int(x) for x in occ["store"]]
+    fracs, n_copies_static, si = [], 0, 0
+    for cap_t, frac_t in cfg.windowed_store_fracs:
+        if cap_t <= R or not use_store:
+            fracs.append((cap_t, frac_t))
+            continue
+        need = min(_need(store[si]), P)
+        si += 1
+        fracs.append((cap_t, (need + 0.5) / P))
+        side = -(-min(cap_t, R_STORE) // R)
+        n_copies_static += side * side * need
+    P_all = P + n_copies_static
+    pe_need = min(_need(int(occ["live_parents"]) + int(occ["live_copies"])), P_all)
+    ring_need = min(int(round(int(occ["n_ring"]) * margin)) + 1, max(n_copies_static, 1))
+    # R == 3 has no big tier: the mid tier takes every rect > 2 row
+    mid_need = int(occ["n_mid"]) + (int(occ["n_big"]) if R == 3 else 0)
+    return dataclasses.replace(
+        cfg,
+        windowed_store_fracs=tuple(fracs),
+        windowed_mid_frac=(min(_need(mid_need), P) + 0.5) / P,
+        windowed_big_frac=(min(_need(occ["n_big"]), P) + 0.5) / P,
+        windowed_copy_ring_frac=(min((ring_need + 0.5) / n_copies_static, 1.0)
+                                 if n_copies_static else cfg.windowed_copy_ring_frac),
+        windowed_expand_frac=min(pe_need / max(P_all, 1), 1.0),
+        window_blocks=max(int(occ["window_blocks_need"]), 2 * R),
+    )
+
+
+def _windowed_chunk(cfg: RasterizeConfig) -> int:
+    """`windowed_chunk`, clamped to a multiple of 128 dividing tile_capacity."""
+    K_TILE = cfg.tile_capacity
+    K_chunk = int(cfg.windowed_chunk)
+    if K_chunk % 128 != 0 or K_TILE % K_chunk != 0:
+        K_chunk = 256 if K_TILE % 256 == 0 else 128
+    return min(K_chunk, K_TILE)
+
+
+def _check_windowed_options(cfg: RasterizeConfig) -> None:
+    for bad, what in ((cfg.ewa_impl != "vpu", f"ewa_impl={cfg.ewa_impl!r}"),
+                      (cfg.feature_precision != "highest",
+                       f"feature_precision={cfg.feature_precision!r}"),
+                      (bool(cfg.window_ablate), f"window_ablate={cfg.window_ablate!r}")):
+        if bad:
+            raise NotImplementedError(
+                f"{what} of the windowed render is not ported yet: ROADMAP.md A.8")
+
+
+class _CompositeWindowedFn(torch.autograd.Function):
+    """Windowed compositor over the host-built work list. Its backward (the
+    TPU's `composite_windowed_bwd`) belongs to the next slice of the port."""
+
+    @staticmethod
+    def forward(ctx, G_s, table_local, counts, bases, dests, nblks, n_feat, tiles_x,
+                cfg):
+        acc, T = win.composite_windowed(
+            G_s, table_local, counts, bases, dests, nblks, cfg.tile, tiles_x,
+            alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min,
+            chunk=_windowed_chunk(cfg),
+            n_span=int(round(cfg.max_tiles_per_gaussian ** 0.5)))
+        return acc[..., :n_feat], T
+
+    @staticmethod
+    def backward(ctx, d_acc, d_T):
+        raise NotImplementedError(
+            "the gradient of the windowed render (composite_windowed_bwd, "
+            "ROADMAP.md B.5) is not ported yet: train with windowed=False")
+
+
+class _CompositeWindowedSortedFn(torch.autograd.Function):
+    """Windowed compositor with the depth order built in the kernel: a
+    render path, not differentiable (as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, G_s, bases, dests, nblks, sstarts, sends, n_feat, tiles_x, cfg):
+        acc, T, nv = win.composite_windowed_sorted(
+            G_s, bases, dests, nblks, sstarts, sends, cfg.tile, tiles_x,
+            alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min,
+            chunk=_windowed_chunk(cfg),
+            n_span=int(round(cfg.max_tiles_per_gaussian ** 0.5)),
+            w_blocks=cfg.window_blocks, k_tile=cfg.tile_capacity)
+        ctx.mark_non_differentiable(nv)
+        return acc[..., :n_feat], T, nv
+
+    @staticmethod
+    def backward(ctx, d_acc, d_T, d_nv):
+        raise NotImplementedError(
+            "windowed_sort='kernel' renders only (not differentiable); "
+            "train with windowed=False")
+
+
 def _untile(x, tiles_x: int, tiles_y: int, tile: int, W: int, H: int):
     C = x.shape[-1]
     img = x.reshape(tiles_y, tiles_x, tile, tile, C)
@@ -439,15 +883,13 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
               cfg: RasterizeConfig = RasterizeConfig(), *, colors=None, shs=None,
               sh_degree: int = 0, obj_features=None, bg_color=None,
               active_mask=None, windowed: Optional[bool] = None) -> RenderOutput:
-    """Render Gaussians (the classic path of `sags_tpu.ops.rasterize`).
-    Differentiable w.r.t. means3d, opacities, scales, quats, colors/shs and
-    obj_features. Runs where its inputs live; CUDA tensors go through the
+    """Render Gaussians (`sags_tpu.ops.rasterize`). `windowed=None` follows
+    `cfg.windowed`; the windowed path runs when the shapes allow it (tile
+    capacity a multiple of 128, a square R×R window, 16 object channels),
+    else the classic one. The classic path is differentiable w.r.t. means3d,
+    opacities, scales, quats, colors/shs and obj_features; the windowed one
+    renders only. Runs where its inputs live; CUDA tensors go through the
     CUDA kernels."""
-    use_windowed = cfg.windowed if windowed is None else windowed
-    if use_windowed:
-        raise NotImplementedError(
-            "the windowed render path (pallas_windowed kernels) is not ported "
-            "yet: it is a later slice of the port; pass windowed=False")
     P = means3d.shape[0]
     dev = means3d.device
     W, H = camera.width, camera.height
@@ -463,18 +905,53 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
                      colors=colors, shs=shs, sh_degree=sh_degree,
                      active_mask=active_mask)
     n_feat = 3 + O + 4
-    table, counts, n_binned, ov_rect, ov_tile, seg = bin_gaussians(
-        pre, tiles_x, tiles_y, cfg)
-    G = _pack_gaussians(pre, obj_features)
-    accum, T_final, px, py = composite(table, counts, G, n_feat, tiles_x, tiles_y, cfg)
-
-    # transmittance-aware overflow accounting (see the JAX package)
-    saturated = torch.all(T_final.detach() < 10.0 * cfg.transmittance_min, dim=1)
-    truncated = seg > cfg.tile_capacity
-    over = torch.clamp(seg - cfg.tile_capacity, min=0)
-    ov_tile_live = torch.sum(torch.where(~saturated, over, torch.zeros_like(over)))
-    need_known = torch.where(saturated & truncated, torch.zeros_like(seg), seg)
-    tile_peak = torch.max(need_known)
+    R = int(round(cfg.max_tiles_per_gaussian ** 0.5))
+    use_windowed = bool(
+        (cfg.windowed if windowed is None else windowed)
+        and cfg.tile_capacity % 128 == 0
+        and R * R == cfg.max_tiles_per_gaussian
+        and cfg.tile * cfg.tile >= 8
+        # the windowed row layout is the SLAM feature set's: 16 obj channels
+        and O == 16)
+    use_kernel_sort = (use_windowed and cfg.windowed_sort == "kernel"
+                       and not cfg.windowed_bf16 and cfg.window_blocks <= 16
+                       and cfg.tile_capacity <= 16 * 128)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    ov_win = ov_big = zero
+    table = counts = None
+    if use_windowed:
+        _check_windowed_options(cfg)
+    if use_kernel_sort:
+        (G_s, bases, dests, nblks, sstarts, sends, ov_rect, ov_win,
+         ov_big) = _prepare_windowed(pre, obj_features, tiles_x, tiles_y, cfg,
+                                     build_table=False)
+        accum, T_final, nv = _CompositeWindowedSortedFn.apply(
+            G_s, bases, dests, nblks, sstarts, sends, n_feat, tiles_x, cfg)
+        ov_tile = torch.sum(torch.clamp(nv - cfg.tile_capacity, min=0))
+        n_binned = torch.sum(nv)
+        tile_peak = torch.max(nv)  # the unclamped need
+        ov_tile_live = ov_tile  # render path: no live/dead split
+    elif use_windowed:
+        (G_s, _, table_local, wcounts, bases, dests, nblks, n_binned, ov_rect, ov_tile,
+         ov_win, ov_big) = _prepare_windowed(pre, obj_features, tiles_x, tiles_y, cfg)
+        accum, T_final = _CompositeWindowedFn.apply(
+            G_s, table_local, wcounts, bases, dests, nblks, n_feat, tiles_x, cfg)
+        tile_peak = torch.max(wcounts)
+        ov_tile_live = ov_tile  # render path: no live/dead split
+    else:
+        table, counts, n_binned, ov_rect, ov_tile, seg = bin_gaussians(
+            pre, tiles_x, tiles_y, cfg)
+        G = _pack_gaussians(pre, obj_features)
+        accum, T_final, px, py = composite(table, counts, G, n_feat, tiles_x, tiles_y, cfg)
+        # transmittance-aware overflow accounting (see the JAX package)
+        saturated = torch.all(T_final.detach() < 10.0 * cfg.transmittance_min, dim=1)
+        truncated = seg > cfg.tile_capacity
+        over = torch.clamp(seg - cfg.tile_capacity, min=0)
+        ov_tile_live = torch.sum(torch.where(~saturated, over, torch.zeros_like(over)))
+        need_known = torch.where(saturated & truncated, torch.zeros_like(seg), seg)
+        tile_peak = torch.max(need_known)
+    if use_windowed:
+        px, py = comp.tile_pixel_coords(tiles_x * tiles_y, tiles_x, cfg.tile, 0, dev)
 
     rgb = accum[..., :3]
     obj = accum[..., 3:3 + O]
@@ -493,13 +970,14 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
     T_img = untile(T_final[..., None])
 
     if cfg.is_used_mode == "contrib":
+        # the classic binning's table; the windowed paths bin anew, as
+        # `contribution_mask(pre, ...)` does in the JAX package
         def is_used_fn():
             return contribution_mask(pre, tiles_x, tiles_y, cfg, table, counts)
     else:
         def is_used_fn():
             return pre.valid
 
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
     return RenderOutput(
         color=color_img.permute(2, 0, 1),
         depth=depth_img.permute(2, 0, 1),
@@ -507,11 +985,11 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
         alpha=alpha_img.permute(2, 0, 1),
         final_T=T_img[..., 0],
         radii=pre.radius,
-        n_binned=n_binned,
-        overflow_rect=ov_rect,
-        overflow_tile=ov_tile,
-        overflow_window=zero,
-        overflow_big=zero,
+        n_binned=n_binned.to(torch.int32),
+        overflow_rect=ov_rect.to(torch.int32),
+        overflow_tile=ov_tile.to(torch.int32),
+        overflow_window=ov_win.to(torch.int32),
+        overflow_big=ov_big.to(torch.int32),
         tile_peak=tile_peak.to(torch.int32),
         overflow_tile_live=ov_tile_live.to(torch.int32),
         _is_used_fn=is_used_fn,

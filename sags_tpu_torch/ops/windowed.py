@@ -1,0 +1,268 @@
+"""Windowed compositing: CUDA kernels `csrc/composite_windowed.cu` and
+`csrc/composite_windowed_sorted.cu` and their plain PyTorch versions.
+
+Port of `sags_tpu/ops/pallas_windowed.py` (`composite_windowed`,
+`composite_windowed_sorted`). The packed rows are sorted by (anchor tile,
+depth), where the anchor is the rect-min tile of a Gaussian's R×R binning
+window, so every row that can touch tile t lies in R contiguous spans of the
+sorted store `G_s` (one per anchor tile row). Span j of tile t covers the
+128-row blocks `bases[j] .. bases[j] + nblks[j] - 1` and is numbered
+`dests[j]·128 ..` in the tile's window: the per-tile work list holds
+window-local ids, and id `i` with `dests[j]·128 <= i < (dests[j] +
+nblks[j])·128` is global row `bases[j]·128 + i - dests[j]·128`.
+
+The TPU kernels copy each tile's window into VMEM (14 blocks of 32×128
+floats at the default budget, more than a Hopper block's 227 KB of shared
+memory). The port does not: it resolves each id through the ≤ R spans and
+gathers the row straight from `G_s`, as `composite_fused` gathers its rows.
+`G_s` stays row-major [P_all, 40]; the kernels read its first 32 columns
+(geometry and features) and, for the in-kernel sort, the rect and depth
+columns below.
+
+Two sources for the depth-ordered work list:
+  * the host pair sort and table (`composite_windowed`);
+  * the kernel itself (`composite_windowed_sorted`): per window slot,
+    validity (in its span, the tile inside the row's rect, the exact
+    conic-q minimum under the alpha-gate level) and a `(dq << 11) | slot`
+    key, bitonic-sorted per tile; the first `k_tile` composite, and `nv`
+    counts the valid slots before that cut.
+Compositing runs in chunks of `chunk` pairs (`windowed_chunk`): a pixel cut
+by T·(1−α) < t_min stays cut to the end of its chunk. Empty slots (id −1)
+read as zero rows and fail the alpha gate.
+
+`scan_impl` and `window_prefetch` are TPU formulations of the same
+arithmetic (the JAX package documents them as bit-exact) and have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
+from sags_tpu_torch.ops.binning import cull_c2, tile_qmin
+from sags_tpu_torch.ops.composite import _chunk_quants, tile_pixel_coords
+
+HDR = 8  # header rows (geometry); feature rows start here
+# Packed-row extra columns of the windowed path (columns 32..39 of the
+# 40-wide layout; columns 0..31 are `rasterize._pack_gaussians`'s).
+COL_RMIN_X = 32
+COL_RMIN_Y = 33
+COL_RECT_W = 34
+COL_RECT_H = 35
+COL_DQ = 36
+COL_RCULL2 = 37  # exact alpha-cull radius² (rasterize.preprocess)
+COL_STORE = 38  # 1.0 marks a slice-store copy row (rasterize._prepare_windowed)
+WIDE_CH = 40
+KERNEL_CH = 32  # columns the compositors read: 8 header + 24 features
+
+SORT_ROWS = 16  # in-kernel sort extent: 16×128 = 2048 window slots
+IDX_BITS = 11  # low key bits carry the window slot
+IDX_MASK = (1 << IDX_BITS) - 1
+KEY_INVALID = 0x7FFFFFFF
+MAX_SPAN = 8  # R ≤ 8: max_tiles_per_gaussian ≤ 64
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+WINDOWED = CudaKernel(
+    "composite_windowed.cu", "sags_composite_windowed",
+    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P])
+SORTED = CudaKernel(
+    "composite_windowed_sorted.cu", "sags_composite_windowed_sorted",
+    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+     _P, _P, _P, _P])
+
+
+def window_rows(ids: torch.Tensor, bases, dests, nblks, n_span: int) -> torch.Tensor:
+    """Window-local ids [NT, K] → global rows of `G_s` (−1 where the id is
+    −1 or lies in no span)."""
+    NT = ids.shape[0]
+    lid = ids.reshape(NT, -1).to(torch.int64)
+    blk = torch.div(lid, 128, rounding_mode="floor")
+    b2, d2, n2 = (x.reshape(NT, n_span).to(torch.int64) for x in (bases, dests, nblks))
+    rows = torch.full_like(lid, -1)
+    for j in range(n_span):
+        d, n = d2[:, j:j + 1], n2[:, j:j + 1]
+        hit = (lid >= 0) & (blk >= d) & (blk < d + n)
+        rows = torch.where(hit, b2[:, j:j + 1] * 128 + lid - d * 128, rows)
+    return rows
+
+
+def _composite_rows_plain(G_s, rows, count_max: int, tile, tiles_x, alpha_min,
+                          t_min, chunk, tile_offset):
+    """Front-to-back compositing of the rows `rows` [NT, K] (−1 = empty) in
+    chunks of `chunk`, over the chunks that start below `count_max`.
+    Returns (acc [NT, tile², 24], T [NT, tile²])."""
+    NT, K = rows.shape
+    G = G_s[:, :KERNEL_CH]
+    px, py = tile_pixel_coords(NT, tiles_x, tile, tile_offset, G.device)
+    T = torch.ones((NT, tile * tile), dtype=torch.float32, device=G.device)
+    acc = torch.zeros((NT, tile * tile, KERNEL_CH - HDR), dtype=torch.float32,
+                      device=G.device)
+    for c0 in range(0, min(K, count_max), chunk):
+        r = rows[:, c0:c0 + chunk]
+        vm = r >= 0
+        Gc = torch.where(vm[..., None], G[torch.clamp(r, min=0)], torch.zeros((), device=G.device))
+        _, _, _, a, _, om, T_exc, m = _chunk_quants(Gc, vm, px, py, T, alpha_min, t_min)
+        w = torch.where(m, a * T_exc, torch.zeros_like(a))
+        acc = acc + torch.einsum("tpk,tkc->tpc", w, Gc[..., HDR:])
+        T = T * torch.prod(torch.where(m, om, torch.ones_like(om)), dim=-1)
+    return acc, T
+
+
+def composite_windowed_plain(G_s, table_local, counts, bases, dests, nblks, tile,
+                             tiles_x, alpha_min=1.0 / 255.0, t_min=1e-4, chunk=512,
+                             n_span=4, tile_offset=0):
+    """Plain PyTorch version of `composite_windowed`."""
+    rows = window_rows(table_local, bases, dests, nblks, n_span)
+    count_max = int(counts.max()) if counts.numel() else 0
+    return _composite_rows_plain(G_s, rows, count_max, tile, tiles_x, alpha_min,
+                                 t_min, chunk, tile_offset)
+
+
+def _check(G_s, tile, n_span, *ints):
+    dev = G_s.device
+    if dev.type != "cuda":
+        raise ValueError(f"the windowed compositors take CUDA tensors, not {dev.type}")
+    if G_s.dtype != torch.float32 or G_s.dim() != 2 or G_s.shape[1] < WIDE_CH:
+        raise ValueError(f"the windowed compositors take float32 G_s [P, >= {WIDE_CH}]")
+    if tile != 16:
+        raise ValueError("the windowed compositors run 16x16 tiles (256 threads)")
+    if not 1 <= n_span <= MAX_SPAN:
+        raise ValueError(f"n_span {n_span} outside 1..{MAX_SPAN}")
+    for x in ints:
+        if x.dtype != torch.int32 or x.device != dev:
+            raise TypeError("the plan and table tensors must be int32 on G_s's device")
+
+
+def composite_windowed(G_s, table_local, counts, bases, dests, nblks, tile, tiles_x,
+                       alpha_min=1.0 / 255.0, t_min=1e-4, chunk=512, n_span=4,
+                       tile_offset=0):
+    """Composite each tile's window-local work list `table_local`
+    [NT, K/128, 128] (−1 padded) over `counts` [NT] entries, resolving ids
+    through the span plan (`bases`, `dests`, `nblks`, [NT·n_span] each).
+    Returns (acc [NT, tile², 24], T_final [NT, tile²]). CUDA tensors run the
+    kernel, CPU tensors the plain version."""
+    if G_s.device.type == "cpu":
+        return composite_windowed_plain(G_s, table_local, counts, bases, dests, nblks,
+                                        tile, tiles_x, alpha_min, t_min, chunk, n_span,
+                                        tile_offset)
+    _check(G_s, tile, n_span, table_local, counts, bases, dests, nblks)
+    NT = counts.shape[0]
+    K = table_local.numel() // max(NT, 1)
+    if table_local.numel() != NT * K or bases.numel() != NT * n_span:
+        raise ValueError("table_local must be [NT, K/128, 128] and the plan [NT*n_span]")
+    G_s, table_local = G_s.contiguous(), table_local.contiguous()
+    counts, bases, dests, nblks = (x.contiguous() for x in (counts, bases, dests, nblks))
+    PIX = tile * tile
+    acc = torch.empty((NT, PIX, KERNEL_CH - HDR), dtype=torch.float32, device=G_s.device)
+    T = torch.empty((NT, PIX), dtype=torch.float32, device=G_s.device)
+    WINDOWED.launch(G_s.data_ptr(), G_s.shape[1], G_s.shape[0], table_local.data_ptr(),
+                    counts.data_ptr(), bases.data_ptr(), dests.data_ptr(),
+                    nblks.data_ptr(), n_span, NT, K, tile, tiles_x, int(tile_offset),
+                    float(alpha_min), float(t_min), int(chunk), acc.data_ptr(),
+                    T.data_ptr(), stream_ptr(G_s.device))
+    return acc, T
+
+
+def _sort_width(w_blocks: int) -> int:
+    """Slots the in-kernel sort orders: w_blocks·128 rounded up to a power
+    of two (the slots past the window hold invalid keys, which sort last)."""
+    n = 128
+    while n < w_blocks * 128:
+        n *= 2
+    return n
+
+
+def window_keys_plain(G_s, bases, dests, nblks, sstarts, sends, tile, tiles_x,
+                      alpha_min, n_span, w_blocks, tile_offset=0) -> torch.Tensor:
+    """The in-kernel sort's keys [NT, w_blocks·128]: `(dq << 11) | slot`
+    for a valid slot, `KEY_INVALID` otherwise."""
+    NT = bases.numel() // n_span
+    dev = G_s.device
+    S = w_blocks * 128
+    slot = torch.arange(S, device=dev, dtype=torch.int64)
+    blk, lane = slot // 128, slot % 128
+    b2, d2, n2, s2, e2 = (x.reshape(NT, n_span).to(torch.int64)
+                          for x in (bases, dests, nblks, sstarts, sends))
+    in_any = torch.zeros((NT, S), dtype=torch.bool, device=dev)
+    base_b = torch.zeros((NT, S), dtype=torch.int64, device=dev)
+    s_b = torch.zeros_like(base_b)
+    e_b = torch.zeros_like(base_b)
+    for j in range(n_span):
+        d, n = d2[:, j:j + 1], n2[:, j:j + 1]
+        hit = (d <= blk) & (blk < d + n)
+        base_b = torch.where(hit, b2[:, j:j + 1] + (blk - d), base_b)
+        s_b = torch.where(hit, s2[:, j:j + 1], s_b)
+        e_b = torch.where(hit, e2[:, j:j + 1], e_b)
+        in_any = in_any | hit
+    grow = base_b * 128 + lane
+    ok = in_any & (grow >= s_b) & (grow < e_b)
+    row = G_s[torch.clamp(grow, 0, max(G_s.shape[0] - 1, 0))].detach()
+    tg = torch.arange(NT, device=dev) + int(tile_offset)
+    tx = (tg % tiles_x).to(torch.int32)[:, None]
+    ty = (tg // tiles_x).to(torch.int32)[:, None]
+    rx, ry, rw, rh, dq = (row[..., c].to(torch.int32) for c in
+                          (COL_RMIN_X, COL_RMIN_Y, COL_RECT_W, COL_RECT_H, COL_DQ))
+    ok = ok & (rx <= tx) & (tx < rx + rw) & (ry <= ty) & (ty < ry + rh)
+    qmin = tile_qmin(row[..., 2], row[..., 3], row[..., 4], row[..., 0], row[..., 1],
+                     tx, ty, float(tile))
+    ok = ok & (qmin <= cull_c2(row[..., 5], alpha_min))
+    key = (dq << IDX_BITS) | slot.to(torch.int32)
+    return torch.where(ok, key, torch.full_like(key, KEY_INVALID))
+
+
+def composite_windowed_sorted_plain(G_s, bases, dests, nblks, sstarts, sends, tile,
+                                    tiles_x, alpha_min=1.0 / 255.0, t_min=1e-4,
+                                    chunk=512, n_span=4, w_blocks=12, k_tile=512,
+                                    tile_offset=0):
+    """Plain PyTorch version of `composite_windowed_sorted`."""
+    keys = window_keys_plain(G_s, bases, dests, nblks, sstarts, sends, tile, tiles_x,
+                             alpha_min, n_span, w_blocks, tile_offset)
+    NT, S = keys.shape
+    nv = (keys != KEY_INVALID).sum(dim=1).to(torch.int32)
+    order = torch.sort(keys, dim=1).values[:, :k_tile]
+    if S < k_tile:
+        order = torch.cat([order, torch.full((NT, k_tile - S), KEY_INVALID,
+                                             dtype=order.dtype, device=order.device)], 1)
+    ids = torch.where(order != KEY_INVALID, order & IDX_MASK, torch.full_like(order, -1))
+    rows = window_rows(ids, bases, dests, nblks, n_span)
+    count_max = min(int(nv.max()), k_tile) if NT else 0
+    acc, T = _composite_rows_plain(G_s, rows, count_max, tile, tiles_x, alpha_min,
+                                   t_min, chunk, tile_offset)
+    return acc, T, nv
+
+
+def composite_windowed_sorted(G_s, bases, dests, nblks, sstarts, sends, tile, tiles_x,
+                              alpha_min=1.0 / 255.0, t_min=1e-4, chunk=512, n_span=4,
+                              w_blocks=12, k_tile=512, tile_offset=0):
+    """Forward-only windowed compositor with in-kernel depth ordering.
+    `sstarts`/`sends` [NT·n_span] bound each span's rows. Returns (acc
+    [NT, tile², 24], T_final [NT, tile²], nv [NT] int32: each tile's valid
+    candidates before the `k_tile` cut)."""
+    if not 1 <= w_blocks <= SORT_ROWS or k_tile > SORT_ROWS * 128:
+        raise ValueError(f"w_blocks {w_blocks} and k_tile {k_tile} must fit the "
+                         f"{SORT_ROWS * 128}-slot sort")
+    if G_s.device.type == "cpu":
+        return composite_windowed_sorted_plain(G_s, bases, dests, nblks, sstarts, sends,
+                                               tile, tiles_x, alpha_min, t_min, chunk,
+                                               n_span, w_blocks, k_tile, tile_offset)
+    _check(G_s, tile, n_span, bases, dests, nblks, sstarts, sends)
+    NT = bases.numel() // n_span
+    G_s = G_s.contiguous()
+    bases, dests, nblks, sstarts, sends = (
+        x.contiguous() for x in (bases, dests, nblks, sstarts, sends))
+    PIX = tile * tile
+    acc = torch.empty((NT, PIX, KERNEL_CH - HDR), dtype=torch.float32, device=G_s.device)
+    T = torch.empty((NT, PIX), dtype=torch.float32, device=G_s.device)
+    nv = torch.empty((NT,), dtype=torch.int32, device=G_s.device)
+    SORTED.launch(G_s.data_ptr(), G_s.shape[1], G_s.shape[0], bases.data_ptr(),
+                  dests.data_ptr(), nblks.data_ptr(), sstarts.data_ptr(),
+                  sends.data_ptr(), n_span, NT, w_blocks, _sort_width(w_blocks),
+                  int(k_tile), tile, tiles_x, int(tile_offset), float(alpha_min),
+                  float(t_min), int(chunk), acc.data_ptr(), T.data_ptr(),
+                  nv.data_ptr(), stream_ptr(G_s.device))
+    return acc, T, nv

@@ -1,11 +1,11 @@
 """Online SLAM pipeline, fused front-end (`sags_tpu.slam.pipeline` in torch):
 frame stream → track → map growth → keyframing → one training step per
-frame, with the metrics ring drained every `metrics_interval` frames and the
-overflow-adaptive tile capacity.
+frame, with the metrics ring drained every `metrics_interval` frames, the
+overflow-adaptive render capacities (with the windowed budget probe), and
+`evaluate`, the PSNR / SSIM / LPIPS of the map rendered at given poses.
 
 Not ported yet (later slices): the per-module path (`fused_frontend=False`,
-the esikf tracker), the mask generator and ID association, `evaluate`, and
-the windowed budget probe.
+the esikf tracker), the mask generator and ID association.
 """
 
 from __future__ import annotations
@@ -18,11 +18,14 @@ import numpy as np
 import torch
 
 from sags_tpu_torch import resolve_device
-from sags_tpu_torch.core.camera import Camera
+from sags_tpu_torch.core.camera import Camera, focal2fov, make_camera
 from sags_tpu_torch.core.config import SLAMConfig
+from sags_tpu_torch.core.transforms import LIDAR_TO_CAM
+from sags_tpu_torch.eval import metrics as eval_metrics
 from sags_tpu_torch.io.datasets import Frame
 from sags_tpu_torch.io.queue import FrameQueue
 from sags_tpu_torch.mapping import gaussian_map as gm
+from sags_tpu_torch.ops import rasterize as rz
 from sags_tpu_torch.slam import fused as fused_mod
 from sags_tpu_torch.slam import step as slam_step_mod
 
@@ -134,9 +137,46 @@ class SLAMPipeline:
         new_map, new_opt = gm.grow(self.state.map, new_cap, self.state.opt_state)
         self.state = self.state._replace(map=new_map, opt_state=new_opt)
 
+    def _camera_for(self, frame: Frame, pose: np.ndarray) -> Camera:
+        H, W = frame.image.shape[1:]
+        cam_cfg = self.cfg.camera
+        fovx = focal2fov(cam_cfg.fx * W / cam_cfg.width, W)
+        fovy = focal2fov(cam_cfg.fy * H / cam_cfg.height, H)
+        R = np.asarray(pose, np.float32)[:3, :3]
+        if self.cfg.lidar_axes:
+            R = R @ LIDAR_TO_CAM
+        return make_camera(R, np.asarray(pose, np.float32)[:3, 3], W, H, fovx, fovy,
+                           device=self.device)
+
     def _rederive_windowed(self, r):
-        raise NotImplementedError(
-            "windowed budget derivation belongs to the windowed-path slice")
+        """Size every windowed-path buffer from one occupancy probe of the
+        current map at the newest keyframe's viewpoint (`windowed_occupancy`
+        → `derive_windowed_budgets`, margin 1.2). Returns the derived knobs,
+        or None when there is no keyframe to probe from."""
+        if not self.keyframes:
+            return None
+        m = self.state.map
+        with torch.no_grad():
+            occ = rz.windowed_occupancy(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
+                                        gm.get_rotation(m), self.keyframes[-1].camera,
+                                        r, active_mask=m.active)
+        occ = {k: v.cpu().numpy() for k, v in occ.items()}
+        derived = rz.derive_windowed_budgets(r, occ, m.capacity, margin=1.2)
+        out = {
+            "windowed_store_fracs": derived.windowed_store_fracs,
+            "windowed_mid_frac": derived.windowed_mid_frac,
+            "windowed_big_frac": derived.windowed_big_frac,
+            "windowed_copy_ring_frac": derived.windowed_copy_ring_frac,
+            "windowed_expand_frac": derived.windowed_expand_frac,
+            "window_blocks": min(derived.window_blocks, 40),
+        }
+        # the classic path's R×R window, sized to the widest live splat
+        # (capped at 8×8; wider rects stay counted in overflow_rect)
+        side = int(occ["max_rect_side"])
+        R = int(round(r.max_tiles_per_gaussian ** 0.5))
+        if side:
+            out["max_tiles_per_gaussian"] = min(max(side, R), 8) ** 2
+        return out
 
     def _rebuild_frontend(self) -> None:
         if self._fused is not None:
@@ -146,8 +186,10 @@ class SLAMPipeline:
             self._fused.lm_log = self.lm_log
 
     def _maybe_grow_capacity(self, metrics: _HostMetrics) -> None:
-        """Overflow-adaptive tile capacity and binning window (classic path:
-        overflow_window and overflow_big are always 0)."""
+        """Overflow-adaptive render capacities: three strikes in a row grow
+        tile_capacity (to 1.25× the peak need), the binning window (rect),
+        and the windowed budgets (window, big: one probe; doubling when there
+        is nothing to probe or the probe changes nothing)."""
         binned = max(int(metrics.n_binned), 1)
         thresh = 0.001 * binned
         over = {
@@ -173,7 +215,17 @@ class SLAMPipeline:
                 kw["windowed_big_capacity"] = (r.windowed_big_capacity * 2
                                                if r.windowed_big_capacity else 128)
         if over["window"] or over["big"]:
-            kw.update(self._rederive_windowed(r))
+            derived = self._rederive_windowed(dataclasses.replace(r, **kw) if kw else r)
+            if derived is not None and any(getattr(r, k) != v for k, v in derived.items()):
+                kw.update(derived)
+            else:
+                if over["window"] and r.window_blocks < 40:
+                    kw["window_blocks"] = r.window_blocks + 2
+                if over["big"]:
+                    if r.windowed_mid_frac < 1.0:
+                        kw["windowed_mid_frac"] = min(r.windowed_mid_frac * 2, 1.0)
+                    if r.windowed_big_frac < 1.0:
+                        kw["windowed_big_frac"] = min(r.windowed_big_frac * 2, 1.0)
         self._overflow_strikes = 0
         if not kw:
             return
@@ -349,3 +401,47 @@ class SLAMPipeline:
             n_keyframes=len(self.keyframes), train_iters=self.train_iter,
             losses=self.losses, state=self.state, timed_out=q.timed_out,
             frame_times=frame_times)
+
+    def eval_config(self, derive_budgets: bool = True) -> SLAMConfig:
+        """The config `evaluate` renders with: with the windowed render, the
+        buffers sized once by the occupancy probe and the tile capacity
+        raised to `tile_capacity_max` (coverage over speed)."""
+        cfg = self.cfg
+        if derive_budgets and cfg.raster.windowed:
+            derived = self._rederive_windowed(cfg.raster) or {}
+            derived["tile_capacity"] = max(cfg.raster.tile_capacity,
+                                           cfg.raster.tile_capacity_max)
+            cfg = cfg.replace(raster=dataclasses.replace(cfg.raster, **derived))
+        return cfg
+
+    def evaluate(self, frames: Iterable[Frame], every: int = 1, with_lpips: bool = True,
+                 poses=None, derive_budgets: bool = True) -> List[dict]:
+        """PSNR / SSIM / LPIPS of the map over frames (every `every`-th),
+        rendered at `poses[i]` when given (e.g. the run's estimated poses),
+        else at each frame's pose, with `eval_config(derive_budgets)`.
+        Nothing adapts during the evaluation; each frame reports
+        `overflow_pairs` and `n_binned`. Renders under `torch.no_grad()`."""
+        cfg = self.eval_config(derive_budgets)
+        scores = []
+        for i, frame in enumerate(frames):
+            if i % every:
+                continue
+            if poses is not None and i >= len(poses):
+                break  # a timed-out run tracked fewer frames than the stream holds
+            pose_i = np.asarray(poses[i] if poses is not None else frame.pose)
+            cam = self._camera_for(frame, pose_i)
+            with torch.no_grad():
+                out = slam_step_mod.render_map(self.state.map, cam, cfg)
+            pred = out.color
+            gt = torch.as_tensor(np.asarray(frame.image), device=pred.device)
+            counters = torch.stack([out.overflow_tile, out.overflow_rect,
+                                    out.overflow_window, out.overflow_big,
+                                    out.n_binned]).cpu().tolist()
+            s = {"psnr": eval_metrics.psnr(pred, gt),
+                 "ssim": eval_metrics.ssim(pred, gt),
+                 "overflow_pairs": int(sum(counters[:4])), "n_binned": int(counters[4])}
+            if with_lpips:
+                s["lpips"] = eval_metrics.lpips(pred, gt)
+                s["lpips_net"] = eval_metrics.lpips_backend()
+            scores.append(s)
+        return scores

@@ -1,12 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small shapes. A CUDA kernel has no CPU mode, so every test here needs an
-NVIDIA GPU with `nvcc` and skips elsewhere. This file imports no JAX, so it
-runs on a machine without it:
+at small shapes. A CUDA kernel has no CPU mode, so every kernel test here
+needs an NVIDIA GPU with `nvcc` and skips elsewhere (the library-hash test
+runs anywhere). This file imports no JAX, so it runs on a machine without
+it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 `chip_smoke.py` holds the same kernels at the full slice shapes.
 """
+
+import dataclasses
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -14,8 +19,9 @@ import torch
 
 from sags_tpu_torch.core.camera import make_camera
 from sags_tpu_torch.core.config import RasterizeConfig
-from sags_tpu_torch.ops import binning, composite
+from sags_tpu_torch.ops import _build, binning, composite
 from sags_tpu_torch.ops import rasterize as rz
+from sags_tpu_torch.ops import sort, windowed
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +140,104 @@ def test_wrappers_check_their_inputs(device):
     counts = torch.zeros(2, dtype=torch.int32, device=device)
     with pytest.raises(ValueError):
         composite.composite_fused(G, table, counts, 16, 2)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 128), (3, 1, 128), (2, 8, 256)])
+def test_sort_blocks_kernel_matches_torch_sort(device, shape):
+    """Exactly `torch.sort` of each flattened block: random keys over the
+    whole int32 range, and heavy ties."""
+    g = torch.Generator(device="cpu").manual_seed(shape[0])
+    for hi in (2 ** 31, 8):
+        x = torch.randint(-hi, hi, shape, generator=g, dtype=torch.int64)
+        x = x.to(torch.int32).to(device)
+        before = sort.KERNEL.launches
+        assert torch.equal(sort.sort_blocks(x), sort.sort_blocks_plain(x))
+        assert sort.KERNEL.launches == before + 1
+
+
+WIN_CFG = RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=256, window_blocks=16,
+                          windowed_mid_frac=1.0, windowed_big_frac=1.0,
+                          windowed_big_capacity=64, windowed_chunk=128)
+
+
+def _prepared(device, build_table, seed=0):
+    means, opac, scales, quats, colors, objs = (t.to(device) for t in _scene(seed))
+    scales[:12] *= 6.0  # a few wide splats for the slice store
+    cam = make_camera(torch.eye(3, device=device), torch.zeros(3, device=device),
+                      W, H, 1.2, 0.9)
+    pre = rz.preprocess(means, opac, scales, quats, cam, WIN_CFG, colors=colors)
+    return rz._prepare_windowed(pre, objs, TILES_X, TILES_Y, WIN_CFG,
+                                build_table=build_table)
+
+
+def test_windowed_kernels_match_plain(device):
+    """`composite_windowed` and `composite_windowed_sorted` against their
+    plain versions on the same prepared inputs: acc and T to 1e-3 absolute
+    (the bar of `chip_smoke.py`), nv exact."""
+    kw = dict(alpha_min=WIN_CFG.alpha_min, t_min=WIN_CFG.transmittance_min, chunk=128,
+              n_span=4)
+    G_s, _, tl, counts, bases, dests, nblks, *_ = _prepared(device, True)
+    before = windowed.WINDOWED.launches
+    acc, T = windowed.composite_windowed(G_s, tl, counts, bases, dests, nblks, 16,
+                                         TILES_X, **kw)
+    acc_p, T_p = windowed.composite_windowed_plain(G_s, tl, counts, bases, dests, nblks,
+                                                   16, TILES_X, **kw)
+    assert windowed.WINDOWED.launches == before + 1
+    torch.testing.assert_close(acc, acc_p, atol=1e-3, rtol=0)
+    torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+
+    G_s, bases, dests, nblks, ss, se, *_ = _prepared(device, False)
+    skw = dict(kw, w_blocks=WIN_CFG.window_blocks, k_tile=WIN_CFG.tile_capacity)
+    acc, T, nv = windowed.composite_windowed_sorted(G_s, bases, dests, nblks, ss, se, 16,
+                                                    TILES_X, **skw)
+    acc_p, T_p, nv_p = windowed.composite_windowed_sorted_plain(
+        G_s, bases, dests, nblks, ss, se, 16, TILES_X, **skw)
+    assert torch.equal(nv, nv_p) and int(nv.sum()) > 0
+    torch.testing.assert_close(acc, acc_p, atol=1e-3, rtol=0)
+    torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+
+
+def test_windowed_render_on_the_card(device):
+    """`rasterize` with the default windowed path on the card: the kernel
+    sort and the host table give the same bits (no window overflow), and
+    both agree with the CPU's plain versions to 1e-4 absolute with the same
+    counters."""
+    outs = {}
+    for dev in (torch.device("cpu"), device):
+        means, opac, scales, quats, colors, objs = (t.to(dev) for t in _scene(2))
+        cam = make_camera(torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                          W, H, 1.2, 0.9)
+        for mode in ("host", "kernel"):
+            cfg = dataclasses.replace(WIN_CFG, windowed_sort=mode)
+            with torch.no_grad():
+                outs[dev.type, mode] = rz.rasterize(means, opac, scales, quats, cam, cfg,
+                                                    colors=colors, obj_features=objs)
+    h, k = outs["cuda", "host"], outs["cuda", "kernel"]
+    assert int(h.overflow_window) == 0 and int(k.overflow_window) == 0
+    for f in ("color", "depth", "objects", "final_T"):
+        assert torch.equal(getattr(h, f), getattr(k, f)), f
+    for mode in ("host", "kernel"):
+        c, g = outs["cpu", mode], outs["cuda", mode]
+        for f in ("color", "depth", "objects", "alpha", "final_T"):
+            torch.testing.assert_close(getattr(g, f).cpu(), getattr(c, f), atol=1e-4,
+                                       rtol=0)
+        for f in ("n_binned", "overflow_tile", "overflow_rect", "tile_peak"):
+            assert int(getattr(g, f)) == int(getattr(c, f)), f
+
+
+def test_header_edit_changes_the_library_hash(monkeypatch, tmp_path):
+    """A library is named by its source and every `csrc/` header it
+    includes: editing a header that only an included header includes still
+    builds anew instead of loading a stale library."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    monkeypatch.setattr(_build, "CSRC", str(src))
+    name = "composite_windowed_sorted.cu"
+    assert set(_build.source_files(name)) == {name, "bitonic.cuh", "windowed.cuh"}
+    before = {s: _build._lib_path(s) for s in ("sort_blocks.cu", name, "fill_table.cu")}
+    with open(os.path.join(src, "bitonic.cuh"), "a") as f:
+        f.write("\n// edited\n")
+    after = {s: _build._lib_path(s) for s in before}
+    assert after["sort_blocks.cu"] != before["sort_blocks.cu"]
+    assert after[name] != before[name]
+    assert after["fill_table.cu"] == before["fill_table.cu"]

@@ -138,11 +138,15 @@ def test_rasterize_gradients_match_jax(case):
 
 
 def test_windowed_path_raises():
+    """The windowed render runs (`tests/test_torch_windowed.py`); its options
+    that are not ported yet raise instead of rendering something else."""
     means, opac, scales, quats, colors, *_ = _scene(0, 16)
     _, tc = _cams((0.0, 0.0, 0.0))
     args = [torch.as_tensor(a) for a in (means, opac, scales, quats)]
-    with pytest.raises(NotImplementedError, match="windowed"):
-        trz.rasterize(*args, tc, tconf.RasterizeConfig(), colors=torch.as_tensor(colors))
-    with pytest.raises(NotImplementedError):
-        trz.rasterize(*args, tc, tconf.RasterizeConfig(windowed=False),
-                      colors=torch.as_tensor(colors), windowed=True)
+    out = trz.rasterize(*args, tc, tconf.RasterizeConfig(), colors=torch.as_tensor(colors))
+    assert out.color.shape == (3, H, W)
+    for bad in (dict(windowed_bf16=True), dict(ewa_impl="quad"),
+                dict(feature_precision="default"), dict(window_ablate="nosel")):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            trz.rasterize(*args, tc, tconf.RasterizeConfig(windowed=False, **bad),
+                          colors=torch.as_tensor(colors), windowed=True)
