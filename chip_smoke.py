@@ -14,9 +14,14 @@ Phases, each failing the run (non-zero exit, no result line):
        and the scattered dG bitwise equal across two backward runs;
      - windowed path, K = 1024, windowed_chunk 512, R = 4, slice store on:
        composite_windowed and composite_windowed_sorted to 1e-3 absolute
-       (nv exact), sort_blocks on [1280, 16, 128] random int32 exactly equal
-       to torch.sort, and the kernel-sort compositor bitwise equal to the
-       host-table one on every tile the 16-block window did not cut;
+       (nv exact), composite_windowed_bwd to 2e-4 relative per output row
+       with the scattered dG_s bitwise equal across two runs, each forward
+       option (ewa_impl "quad", feature_precision "high" and "default",
+       windowed_bf16) against its plain version and against the float32
+       longhand render at the JAX package's bars, sort_blocks on
+       [1280, 16, 128] random int32 exactly equal to torch.sort, and the
+       kernel-sort compositor bitwise equal to the host-table one on every
+       tile the 16-block window did not cut;
   3. drive `SLAMPipeline.run` (fused front-end, GICP tracking) at the
      pipeline bench's operating point for 32 warm + 16 timed frames and check
      finite, falling losses, the trajectory (ATE < 0.12 m over the first
@@ -28,8 +33,14 @@ Phases, each failing the run (non-zero exit, no result line):
      with the kernel sort, and classic: PSNR / SSIM / LPIPS, coverage, and
      the render's time; each windowed mode must launch its compositor, agree
      with the plain functions on one frame (1e-3) and with the classic
-     render (PSNR between the two).
-Launch counts are zeroed just before each main path (the loop, each eval
+     render (PSNR between the two);
+  5. `SLAMPipeline.run` with `train_windowed=True` over the loop's first
+     16 + 8 frames: finite, falling losses, composite_windowed and
+     composite_windowed_bwd launched once per training step and the classic
+     compositor never, the ATE within 1% of the classic loop's over the
+     same frames, and two backward passes of the windowed loss on the
+     newest keyframe bitwise equal in all seven parameter groups.
+Launch counts are zeroed just before each main path (each loop, each eval
 mode) and read just after. The line before the last holds each kernel's
 launches on its path, its time, its plain version's time, the library
 call's time and its bound. The last stdout line is
@@ -232,8 +243,8 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
 
     from sags_tpu_torch.core.camera import make_camera
     from sags_tpu_torch.core.config import RasterizeConfig
+    from sags_tpu_torch.ops import composite, sort, windowed as win
     from sags_tpu_torch.ops import rasterize as rz
-    from sags_tpu_torch.ops import sort, windowed as win
 
     xyz, opac, scales, quats, colors, objs = random_scene(P, device)
     cam = make_camera(torch.eye(3, device=device), torch.zeros(3, device=device),
@@ -248,7 +259,7 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
                rz.windowed_occupancy(xyz, opac, scales, quats, cam, base).items()}
         cfg = rz.derive_windowed_budgets(base, occ, P)
         pre = rz.preprocess(xyz, opac, scales, quats, cam, cfg, colors=colors)
-        (G_s, _, tl, counts, bases, dests, nblks, n_binned, ov_rect, ov_tile, ov_win,
+        (G_s, table, tl, counts, bases, dests, nblks, n_binned, ov_rect, ov_tile, ov_win,
          ov_big) = rz._prepare_windowed(pre, objs, tiles_x, tiles_y, cfg)
     chunk = rz._windowed_chunk(cfg)
     gate = dict(alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min)
@@ -277,6 +288,36 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
         bytes=128 * n_rows + 4 * kept + 4 * NT * (1 + 3 * 4) + 4 * NT * 256 * 25,
         ops=FWD_OPS_PER_PIXEL_PAIR * pairs_px, live_pixel_pairs=pairs_px)
     del acc_p, T_p
+
+    # -- composite_windowed_bwd: 2e-4 relative per row of dGt (the fused
+    # backward's bar); dG_s after the scatter bitwise equal over two runs
+    g = torch.Generator(device=device).manual_seed(1)
+    d_acc = torch.randn(acc.shape, generator=g, device=device)
+    d_T = torch.randn(T.shape, generator=g, device=device)
+    bargs = (G_s, tl, counts, bases, dests, nblks, d_acc, d_T, T, 16, tiles_x)
+    dGt = win.composite_windowed_bwd(*bargs, **kw)
+    dGt_p = win.composite_windowed_bwd_plain(*bargs, **kw)
+    torch.cuda.synchronize()
+    scale = dGt_p.abs().amax(dim=(0, 2))
+    live = scale > 0
+    rel_b = float(((dGt - dGt_p).abs().amax(dim=(0, 2))[live] / scale[live]).max())
+    err_b = float((dGt - dGt_p).abs().max())
+    del dGt_p
+    assert rel_b <= 2e-4, f"composite_windowed_bwd disagrees: {rel_b} relative"
+    P_all = G_s.shape[0]
+    dG1 = composite.scatter_rows(win.composite_windowed_bwd(*bargs, **kw), table, P_all)
+    dG2 = composite.scatter_rows(win.composite_windowed_bwd(*bargs, **kw), table, P_all)
+    torch.cuda.synchronize()
+    assert torch.equal(dG1, dG2), "dG_s of the windowed backward is not bitwise reproducible"
+    out["composite_windowed_bwd"] = dict(
+        max_abs_err=err_b, rel_err=rel_b,
+        ms=cuda_ms(lambda: win.composite_windowed_bwd(*bargs, **kw), 10),
+        plain_ms=cuda_ms(lambda: win.composite_windowed_bwd_plain(*bargs, **kw), 2),
+        # composite_windowed's reads plus d_acc, d_T and T_final in, dGt out
+        bytes=128 * n_rows + 4 * kept + 4 * NT * (1 + 3 * 4) + 4 * NT * 256 * 26
+        + 4 * NT * 32 * K,
+        ops=BWD_OPS_PER_PIXEL_PAIR * pairs_px, live_pixel_pairs=pairs_px)
+    del dG1, dG2
 
     # -- composite_windowed_sorted at the largest window it sorts (16 blocks)
     kcfg = dataclasses.replace(cfg, window_blocks=16, windowed_sort="kernel")
@@ -323,6 +364,8 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
         live_pixel_pairs=spairs, compare_exchanges=ce, nv_total=int(nv.sum()),
         overflow_window_raw=int(ov_raw))
 
+    variants = variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, sargs, skw)
+
     # -- the kernel sort against the host table at the same 16-block budget:
     # the same bits on every tile whose spans all fit the window
     with torch.no_grad():
@@ -350,6 +393,7 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
         plain_ms=cuda_ms(lambda: sort.sort_blocks_plain(x), 50),
         library_ms=cuda_ms(lambda: torch.sort(flat, dim=1), 50),
         bytes=8 * x.numel(), ops=2.0 * ce, compare_exchanges=ce)
+    out["variants"] = variants
     emit({"phase": "windowed_kernels", "tile_capacity": K,
           "window_blocks_host": cfg.window_blocks, "rows": out["rows"],
           "n_binned": out["n_binned"], "overflow_window_host": out["overflow_window"],
@@ -357,26 +401,112 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
           "composite_windowed_max_abs_err": err,
           "composite_windowed_sorted_max_abs_err": err_s, "nv_exact": True,
           "nv_total": int(nv.sum()), "overflow_window_raw_16_blocks": int(ov_raw),
-          "kernel_sort_bitwise_tiles": n_uncut, "tiles": NT, "sort_blocks_exact": True})
+          "kernel_sort_bitwise_tiles": n_uncut, "tiles": NT, "sort_blocks_exact": True,
+          "composite_windowed_bwd_rel_err": rel_b, "dG_s_bitwise_reproducible": True,
+          "variants": variants})
     return out
 
 
-def slam_setup(device, n_frames, width=SLICE_W, height=SLICE_H, n_world=65536,
-               points=4096, capacity=2 ** 18):
-    """The pipeline bench's operating point (`bench.py:bench_pipeline`):
-    (SLAMConfig, frames)."""
+def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, sargs, skw):
+    """The windowed compositors' options, each kernel against its plain
+    version (1e-3 absolute on acc and T, nv exact; see `against_plain` for
+    the tiers that round weights to bf16), and each against the
+    full-precision longhand render (`acc`, `T`) at the JAX package's bars
+    (`tests/test_pallas_tpu.py:181-283`): `windowed_bf16` rgb, depth and T
+    bitwise equal, obj within 2e-2 relative and not equal;
+    `feature_precision` "high" within 1e-4 and "default" within 8e-3 on
+    rgb, T bitwise equal; `ewa_impl="quad"` within 2e-3 on rgb and T."""
+    import dataclasses
+
+    import torch
+
+    from sags_tpu_torch.ops import rasterize as rz
+    from sags_tpu_torch.ops import windowed as win
+
+    res = {}
+
+    def against_plain(name, fn, plain, *fargs, **fkw):
+        """acc and T to 1e-3 absolute. Where the weight w = α·T is rounded
+        to bf16 ("default", bf16 obj), the kernel's and the plain version's
+        T differ in the last bit (another product order), which can move w
+        across a rounding tie: one bf16 step (≤ 2^-7·w) per pair, so channel
+        c of acc is held to 2^-7 · max |feature c| (Σ w ≤ 1) instead."""
+        got = fn(*fargs, **fkw)
+        want = plain(*fargs, **fkw)
+        torch.cuda.synchronize()
+        if len(got) == 3:
+            assert torch.equal(got[2], want[2]), f"{name}: nv disagrees"
+        d_acc = (got[0] - want[0]).abs().amax(dim=(0, 1))
+        bar = torch.full_like(d_acc, 1e-3)
+        if fkw.get("feat_prec") == "default":
+            bar = torch.maximum(bar, 2.0 ** -7 * feat_max)
+        elif fkw.get("bf16_obj"):
+            bar[obj] = torch.maximum(bar[obj], 2.0 ** -7 * feat_max[obj])
+        err = max(float(d_acc.max()), float((got[1] - want[1]).abs().max()))
+        res[name] = {"max_abs_err": err, "max_err_over_bar": float((d_acc / bar).max()),
+                     "ms": cuda_ms(lambda: fn(*fargs, **fkw), 10)}
+        emit({"phase": "variant", "name": name, **res[name]})
+        assert bool((d_acc <= bar).all()) and float((got[1] - want[1]).abs().max()) <= 1e-3, \
+            f"{name} disagrees with its plain version: {err}"
+        return got
+
+    bcfg = dataclasses.replace(cfg, windowed_bf16=True)
+    with torch.no_grad():
+        G_b, _, tl, counts, bases, dests, nblks, *_ = rz._prepare_windowed(
+            pre, objs, tiles_x, tiles_y, bcfg)
+    args = (G_b, tl, counts, bases, dests, nblks, 16, tiles_x)
+    rgb, obj, rest = slice(0, 3), slice(3, 19), slice(19, 24)
+    feat_max = G_b[:, 8:32].abs().amax(dim=0)
+    tiers = {"quad": dict(ewa_impl="quad"), "high": dict(feat_prec="high"),
+             "default": dict(feat_prec="default")}
+    for name, vkw in tiers.items():
+        # the 48-column rows: the compositor reads their first 32 columns
+        a, t = against_plain(f"composite_windowed:{name}", win.composite_windowed,
+                             win.composite_windowed_plain, *args, **kw, **vkw)
+        d_rgb = float((a[..., rgb] - acc[..., rgb]).abs().max())
+        d_T = float((t - T).abs().max())
+        res[f"composite_windowed:{name}"].update(rgb_vs_highest=d_rgb, T_vs_highest=d_T)
+        bar = {"quad": 2e-3, "high": 1e-4, "default": 8e-3}[name]
+        assert d_rgb <= bar, f"{name}: rgb {d_rgb} from the float32 longhand render"
+        if name == "quad":
+            assert d_T <= bar, f"quad: T {d_T} from the longhand render"
+        else:
+            assert torch.equal(t, T), f"{name}: T differs from the highest tier"
+        against_plain(f"composite_windowed_sorted:{name}", win.composite_windowed_sorted,
+                      win.composite_windowed_sorted_plain, *sargs, **skw, **vkw)
+
+    a, t = against_plain("composite_windowed:bf16", win.composite_windowed,
+                         win.composite_windowed_plain, *args, **kw, bf16_obj=True)
+    o_rel = float((a[..., obj] - acc[..., obj]).abs().max() / acc[..., obj].abs().max())
+    res["composite_windowed:bf16"]["obj_rel_vs_float32"] = o_rel
+    assert torch.equal(a[..., rgb], acc[..., rgb]) and torch.equal(a[..., rest], acc[..., rest]) \
+        and torch.equal(t, T), "bf16: rgb, depth or T differ from the float32 render"
+    assert 0.0 < o_rel <= 2e-2, f"bf16: obj {o_rel} relative from the float32 render"
+    return res
+
+
+def slam_config(points=4096, capacity=2 ** 18, train_windowed=False):
+    """The pipeline bench's operating point (`bench.py:bench_pipeline`)."""
     from sags_tpu_torch.core.config import (KeyframeConfig, MapConfig,
                                             RasterizeConfig, SLAMConfig,
                                             TrackingConfig)
-    from sags_tpu_torch.io.datasets import SyntheticDataset
 
-    cfg = SLAMConfig(
-        raster=RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=512, chunk=64),
+    return SLAMConfig(
+        raster=RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=512, chunk=64,
+                               train_windowed=train_windowed),
         map=MapConfig(initial_capacity=capacity),
         keyframes=KeyframeConfig(keyframe_freq=5, window=16),
         tracking=TrackingConfig(backend="gicp", max_points=points),
         post_train_iters=0, metrics_interval=5,
     )
+
+
+def slam_setup(device, n_frames, width=SLICE_W, height=SLICE_H, n_world=65536,
+               points=4096, capacity=2 ** 18, train_windowed=False):
+    """The pipeline bench's operating point: (SLAMConfig, frames)."""
+    from sags_tpu_torch.io.datasets import SyntheticDataset
+
+    cfg = slam_config(points, capacity, train_windowed)
     frames = list(SyntheticDataset(n_frames=n_frames, width=width, height=height,
                                    n_world=n_world, pts_per_frame=points,
                                    step=0.075, clutter=0.3, device=device))
@@ -450,7 +580,114 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
     assert ate <= 1.05 * REFERENCE_ATE_M, f"ATE {ate} m, reference {REFERENCE_ATE_M} m"
     for sym in SLAM_KERNELS:
         assert launches[sym] > 0, f"{sym} never launched in the SLAM loop"
-    return launches, pipe, frames, poses
+    return launches, pipe, frames, poses, {"ms_per_frame": frame_ms,
+                                           "ms_per_train_step": step_ms, "ate_m": ate}
+
+
+def slam_windowed_phase(device, frames, classic, n_warm=16, n_timed=8):
+    """`SLAMPipeline.run` at the loop cell with `train_windowed=True` over the
+    classic loop's first frames: every training step renders through
+    `composite_windowed` and differentiates through
+    `composite_windowed_bwd`; the overflow counters drive the windowed
+    budgets. Then two backward passes of the windowed loss on the newest
+    keyframe must give bitwise equal gradients (the slice-store fold-back
+    included)."""
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.models.classifier import ClassifierParams
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.ops import rasterize as rz
+    from sags_tpu_torch.slam import step as slam_step
+    from sags_tpu_torch.slam.pipeline import SLAMPipeline
+    from sags_tpu_torch.utils.draws import ReplayDraws
+    from sags_tpu_torch.utils.traj import ate_rmse
+
+    n_frames = n_warm + n_timed
+    cfg = slam_config(train_windowed=True)
+    pipe = SLAMPipeline(cfg, point_budget=cfg.tracking.max_points, rng_seed=0,
+                        device=device)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    warm = pipe.run(frames[:n_warm], post_train=0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    timed = pipe.run(frames[n_warm:n_frames], post_train=0)
+    end.record()
+    torch.cuda.synchronize()
+    frame_ms = start.elapsed_time(end) / n_timed
+    launches = {k.symbol: k.launches for k in _build.kernels()}
+
+    kf = pipe.keyframes[-1]
+    state = pipe.state
+
+    def one_step():
+        nonlocal state
+        state, _ = slam_step.slam_step(state, kf.camera, kf.image, kf.objects, pipe.cfg)
+
+    step_ms = cuda_ms(one_step, 5)
+
+    # two backward passes of the windowed loss at the loop's final state
+    m, r = pipe.state.map, pipe.cfg.raster
+    clf = ClassifierParams(*(p.detach() for p in pipe.state.classifier))
+    u = np.random.default_rng(0).uniform(size=m.capacity).astype(np.float32)
+
+    def grads(use_cls3d):
+        params = gm.Params(*(p.detach().requires_grad_(True) for p in gm.params_of(m)))
+        with torch.enable_grad():
+            loss, _ = slam_step._loss_fn(params, clf, m, kf.camera, kf.image, kf.objects,
+                                         use_cls3d, ReplayDraws([u], device), pipe.cfg)
+            return torch.autograd.grad(loss, tuple(params), allow_unused=True)
+
+    def bitwise(use_cls3d):
+        a, b = grads(use_cls3d), grads(use_cls3d)
+        return {name: (x is None and y is None) or torch.equal(x, y)
+                for name, x, y in zip(gm.Params._fields, a, b)}
+
+    same = bitwise(False)
+    same_cls3d = bitwise(True)
+    with torch.no_grad():
+        out = slam_step.render_map(m, kf.camera, pipe.cfg, windowed=True)
+        occ = rz.windowed_occupancy(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
+                                    gm.get_rotation(m), kf.camera, r, active_mask=m.active)
+
+    poses = np.concatenate([warm.poses_est, timed.poses_est])
+    gt = np.concatenate([warm.poses_gt, timed.poses_gt])
+    ate, _ = ate_rmse(poses, gt, align=False)
+    ate_classic, _ = ate_rmse(classic["poses"][:n_frames], gt, align=False)
+    losses = np.asarray(timed.losses)
+    third = max(1, len(losses) // 3)
+    first_mean, last_mean = float(losses[:third].mean()), float(losses[-third:].mean())
+    steps = timed.train_iters
+    emit({"phase": "slam_windowed", "frames": n_frames, "train_iters": steps,
+          "ms_per_frame": frame_ms, "ms_per_train_step": step_ms,
+          "classic_ms_per_frame": classic["ms_per_frame"],
+          "classic_ms_per_train_step": classic["ms_per_train_step"],
+          "warm_seconds": warm_s, "ate_m": ate, "classic_ate_m_same_frames": ate_classic,
+          "loss_first_third": first_mean, "loss_last_third": last_mean,
+          "window_blocks": r.window_blocks, "max_tiles_per_gaussian": r.max_tiles_per_gaussian,
+          "windowed_big_capacity": r.windowed_big_capacity, "tile_capacity": r.tile_capacity,
+          "overflow": {f: int(getattr(out, f)) for f in (
+              "overflow_tile", "overflow_rect", "overflow_window", "overflow_big",
+              "overflow_tile_live", "tile_peak", "n_binned")},
+          "live_slice_store_copies": int(occ["live_copies"]),
+          "n_active": int(m.active.sum()), "launches": launches,
+          "launches_per_frame": {k: v / n_frames for k, v in launches.items()},
+          "gradients_bitwise_equal": same, "gradients_bitwise_equal_cls3d_step": same_cls3d})
+    assert np.isfinite(losses).all(), "non-finite loss"
+    assert len(losses) == n_frames == steps, (len(losses), steps)
+    assert last_mean < first_mean, (first_mean, last_mean)
+    assert abs(ate - ate_classic) <= 0.01 * ate_classic, (ate, ate_classic)
+    for sym in ("sags_composite_windowed", "sags_composite_windowed_bwd"):
+        assert launches[sym] == steps, f"{sym}: {launches[sym]} launches, {steps} steps"
+    for sym in ("sags_composite_fused", "sags_composite_fused_bwd"):
+        assert launches[sym] == 0, f"{sym} launched in the windowed loop"
+    assert all(same.values()), f"windowed gradients not bitwise reproducible: {same}"
+    return launches, n_frames
 
 
 def eval_phase(device, pipe, frames, poses):
@@ -599,12 +836,13 @@ def main() -> int:
 
     kres = kernel_phase(device)
     wres = windowed_kernel_phase(device)
-    launches, pipe, frames, poses = slam_phase(device)
+    launches, pipe, frames, poses, classic = slam_phase(device)
     K_final = pipe.cfg.raster.tile_capacity
     if K_final not in kres:
         kres.update(kernel_phase(device, capacities=(K_final,)))
     eres = eval_phase(device, pipe, frames, poses)
     n_frames = len(frames)
+    wlaunches, n_wframes = slam_windowed_phase(device, frames, dict(classic, poses=poses))
 
     # (source, TPU kernel, C symbol, the path whose launches count, frames on it)
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -618,6 +856,9 @@ def main() -> int:
            "composite_windowed": ("sags_tpu_torch/csrc/composite_windowed.cu",
                                   "sags_tpu/ops/pallas_windowed.py:568",
                                   "sags_composite_windowed"),
+           "composite_windowed_bwd": ("sags_tpu_torch/csrc/composite_windowed_bwd.cu",
+                                      "sags_tpu/ops/pallas_windowed.py:489",
+                                      "sags_composite_windowed_bwd"),
            "composite_windowed_sorted": ("sags_tpu_torch/csrc/composite_windowed_sorted.cu",
                                          "sags_tpu/ops/pallas_windowed.py:828",
                                          "sags_composite_windowed_sorted"),
@@ -625,6 +866,7 @@ def main() -> int:
                            "sags_tpu/ops/pallas_sort.py:89", "sags_sort_blocks")}
     path_of = {"fill_table": "slam", "composite_fused": "slam",
                "composite_fused_bwd": "slam", "composite_windowed": "windowed_host",
+               "composite_windowed_bwd": "slam_windowed",
                "composite_windowed_sorted": "windowed_kernel",
                # its network runs inside composite_windowed_sorted; the
                # standalone kernel is the block sort's harness
@@ -637,6 +879,8 @@ def main() -> int:
         on = path_of[name]
         if on == "slam":
             n, per = launches[sym], launches[sym] / n_frames
+        elif on == "slam_windowed":
+            n, per = wlaunches[sym], wlaunches[sym] / n_wframes
         else:
             n = eres[on]["launches"][sym]
             per = eres[on]["launches_per_frame"][sym]

@@ -7,7 +7,8 @@
 // each resolved through the tile's span plan (bases, dests, nblks) to a row
 // of the anchor-sorted store G_s [n_rows, row_stride]; columns 0..31 are
 // mx my ca cb cc op pad pad | 24 features. Outputs acc[t, p, 0:24] and
-// T[t, p].
+// T[t, p]. `ewa` (0 longhand, 1 quad), `prec` (0 highest, 1 high, 2
+// default) and `bf16_obj` pick the variant of windowed.cuh's loop.
 //
 // Bound: arithmetic, as composite_fused: each (pixel, pair) costs an exp and
 // ~50 flops; each pair's 128-byte row is read once per tile.
@@ -32,6 +33,7 @@ struct TableIds {
 
 }  // namespace
 
+template <int EWA, int PREC, bool BF16OBJ>
 __global__ void __launch_bounds__(256)
 composite_windowed_kernel(const float* __restrict__ G, int row_stride,
                           int n_rows, const int32_t* __restrict__ table_local,
@@ -54,27 +56,43 @@ composite_windowed_kernel(const float* __restrict__ G, int row_stride,
   if (tid == 0) spans.n = n_span;
   __syncthreads();
   const int tg = t + tile_offset;  // global tile id (pixel coordinates)
-  const float px = (float)((tg % tiles_x) * tile + tid % tile);
-  const float py = (float)((tg / tiles_x) * tile + tid / tile);
   const TableIds ids{table_local + (size_t)t * K};
   const int count = min(counts[t], K);
   const int PIX = blockDim.x;
-  sagsw::composite_window(G, row_stride, n_rows, ids, count, spans, px, py,
-                          alpha_min, t_min, chunk,
-                          acc_out + (size_t)t * PIX * sagsw::CF,
-                          T_out + (size_t)t * PIX);
+  sagsw::composite_window<EWA, PREC, BF16OBJ>(
+      G, row_stride, n_rows, ids, count, spans, tile,
+      (float)((tg % tiles_x) * tile), (float)((tg / tiles_x) * tile), alpha_min,
+      t_min, chunk, acc_out + (size_t)t * PIX * sagsw::CF, T_out + (size_t)t * PIX);
 }
+
+namespace {
+
+using Kernel = void (*)(const float*, int, int, const int32_t*, const int32_t*,
+                        const int32_t*, const int32_t*, const int32_t*, int, int,
+                        int, int, int, float, float, int, float*, float*);
+// [ewa][prec][bf16_obj]
+const Kernel kVariants[2][3][2] = {
+    {{composite_windowed_kernel<0, 0, false>, composite_windowed_kernel<0, 0, true>},
+     {composite_windowed_kernel<0, 1, false>, composite_windowed_kernel<0, 1, true>},
+     {composite_windowed_kernel<0, 2, false>, composite_windowed_kernel<0, 2, true>}},
+    {{composite_windowed_kernel<1, 0, false>, composite_windowed_kernel<1, 0, true>},
+     {composite_windowed_kernel<1, 1, false>, composite_windowed_kernel<1, 1, true>},
+     {composite_windowed_kernel<1, 2, false>, composite_windowed_kernel<1, 2, true>}}};
+
+}  // namespace
 
 extern "C" int sags_composite_windowed(
     const void* G, int row_stride, int n_rows, const void* table_local,
     const void* counts, const void* bases, const void* dests, const void* nblks,
     int n_span, int num_tiles, int K, int tile, int tiles_x, int tile_offset,
-    float alpha_min, float t_min, int chunk, void* acc_out, void* T_out,
-    void* stream) {
-  if (n_span < 1 || n_span > sagsw::MAX_SPAN || chunk < 1) return (int)cudaErrorInvalidValue;
+    float alpha_min, float t_min, int chunk, int ewa, int prec, int bf16_obj,
+    void* acc_out, void* T_out, void* stream) {
+  if (n_span < 1 || n_span > sagsw::MAX_SPAN || chunk < 1 || ewa < 0 || ewa > 1 ||
+      prec < 0 || prec > 2 || bf16_obj < 0 || bf16_obj > 1 ||
+      (bf16_obj && row_stride < sagsw::COL_OBJ_BF16 + sagsw::N_OBJ / 2))
+    return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    composite_windowed_kernel<<<num_tiles, tile * tile, 0,
-                                (cudaStream_t)stream>>>(
+    kVariants[ewa][prec][bf16_obj]<<<num_tiles, tile * tile, 0, (cudaStream_t)stream>>>(
         (const float*)G, row_stride, n_rows, (const int32_t*)table_local,
         (const int32_t*)counts, (const int32_t*)bases, (const int32_t*)dests,
         (const int32_t*)nblks, n_span, K, tile, tiles_x, tile_offset,

@@ -14,7 +14,8 @@
 // 0x7FFFFFFF. The keys are sorted ascending, nv[t] counts the valid ones, and
 // the first min(nv, k_tile) composite through windowed.cuh, the loop of
 // composite_windowed.cu: with the same candidates in the same order the two
-// kernels give the same bits.
+// kernels give the same bits. `ewa` and `prec` pick the variant of that loop
+// (the in-kernel sort is never combined with windowed_bf16).
 //
 // Bound: arithmetic, as composite_windowed, plus per tile the key math over
 // the window's slots and the sort's compare-exchanges.
@@ -101,6 +102,7 @@ struct SortedIds {
 
 }  // namespace
 
+template <int EWA, int PREC>
 __global__ void __launch_bounds__(256) composite_windowed_sorted_kernel(
     const float* __restrict__ G, int row_stride, int n_rows,
     const int32_t* __restrict__ bases, const int32_t* __restrict__ dests,
@@ -161,29 +163,41 @@ __global__ void __launch_bounds__(256) composite_windowed_sorted_kernel(
   const int nv = n_valid;
   if (tid == 0) nv_out[t] = nv;
 
-  const float px = (float)(tx * tile + tid % tile);
-  const float py = (float)(ty * tile + tid / tile);
   const int PIX = blockDim.x;
   const SortedIds ids{keys};
-  sagsw::composite_window(G, row_stride, n_rows, ids, min(nv, k_tile), spans,
-                          px, py, alpha_min, t_min, chunk,
-                          acc_out + (size_t)t * PIX * sagsw::CF,
-                          T_out + (size_t)t * PIX);
+  sagsw::composite_window<EWA, PREC, false>(
+      G, row_stride, n_rows, ids, min(nv, k_tile), spans, tile, (float)(tx * tile),
+      (float)(ty * tile), alpha_min, t_min, chunk, acc_out + (size_t)t * PIX * sagsw::CF,
+      T_out + (size_t)t * PIX);
 }
+
+namespace {
+
+using Kernel = void (*)(const float*, int, int, const int32_t*, const int32_t*,
+                        const int32_t*, const int32_t*, const int32_t*, int, int, int,
+                        int, int, int, int, float, float, int, float*, float*, int32_t*);
+// [ewa][prec]
+const Kernel kVariants[2][3] = {
+    {composite_windowed_sorted_kernel<0, 0>, composite_windowed_sorted_kernel<0, 1>,
+     composite_windowed_sorted_kernel<0, 2>},
+    {composite_windowed_sorted_kernel<1, 0>, composite_windowed_sorted_kernel<1, 1>,
+     composite_windowed_sorted_kernel<1, 2>}};
+
+}  // namespace
 
 extern "C" int sags_composite_windowed_sorted(
     const void* G, int row_stride, int n_rows, const void* bases,
     const void* dests, const void* nblks, const void* sstarts,
     const void* sends, int n_span, int num_tiles, int w_blocks, int n_sort,
     int k_tile, int tile, int tiles_x, int tile_offset, float alpha_min,
-    float t_min, int chunk, void* acc_out, void* T_out, void* nv_out,
-    void* stream) {
+    float t_min, int chunk, int ewa, int prec, void* acc_out, void* T_out,
+    void* nv_out, void* stream) {
   if (n_span < 1 || n_span > sagsw::MAX_SPAN || chunk < 1 || n_sort > SORT_MAX ||
-      (n_sort & (n_sort - 1)) || w_blocks * 128 > n_sort || k_tile > SORT_MAX)
+      (n_sort & (n_sort - 1)) || w_blocks * 128 > n_sort || k_tile > SORT_MAX ||
+      ewa < 0 || ewa > 1 || prec < 0 || prec > 2)
     return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    composite_windowed_sorted_kernel<<<num_tiles, tile * tile, 0,
-                                       (cudaStream_t)stream>>>(
+    kVariants[ewa][prec]<<<num_tiles, tile * tile, 0, (cudaStream_t)stream>>>(
         (const float*)G, row_stride, n_rows, (const int32_t*)bases,
         (const int32_t*)dests, (const int32_t*)nblks, (const int32_t*)sstarts,
         (const int32_t*)sends, n_span, w_blocks, n_sort, k_tile, tile, tiles_x,

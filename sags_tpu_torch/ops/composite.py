@@ -77,7 +77,9 @@ def _chunks(table, counts, chunk):
 
 def composite_fused_plain(G, table, counts, tile, tiles_x, alpha_min=1.0 / 255.0,
                           t_min=1e-4, chunk=64, tile_offset=0):
-    """Plain PyTorch compositor (`rasterize._composite_core_xla` semantics).
+    """Plain PyTorch compositor (`rasterize._composite_core_xla` semantics:
+    a slot composites if it lies below its tile's count and holds an id, as
+    the kernel reads a zero row, which fails the alpha gate, for id −1).
     Returns (acc [NT, tile², CF], T_final [NT, tile²])."""
     NT, K = table.shape
     CF = G.shape[1] - HDR
@@ -87,7 +89,7 @@ def composite_fused_plain(G, table, counts, tile, tiles_x, alpha_min=1.0 / 255.0
     rank = torch.arange(K, device=G.device)
     for c0 in _chunks(table, counts, chunk):
         gid = table[:, c0:c0 + chunk]
-        vm = rank[None, c0:c0 + chunk] < counts[:, None]
+        vm = (rank[None, c0:c0 + chunk] < counts[:, None]) & (gid >= 0)
         Gc = G[torch.clamp(gid, min=0).long()]
         _, _, _, a, _, om, T_exc, m = _chunk_quants(Gc, vm, px, py, T, alpha_min, t_min)
         w = torch.where(m, a * T_exc, torch.zeros_like(a))
@@ -110,7 +112,7 @@ def composite_fused_bwd_plain(G, table, counts, d_acc, d_T, T_final, tile, tiles
 
     def quants(c0, T_entry):
         gid = table[:, c0:c0 + chunk]
-        vm = rank[None, c0:c0 + chunk] < counts[:, None]
+        vm = (rank[None, c0:c0 + chunk] < counts[:, None]) & (gid >= 0)
         Gc = G[torch.clamp(gid, min=0).long()]
         return (Gc,) + _chunk_quants(Gc, vm, px, py, T_entry, alpha_min, t_min)
 
@@ -122,39 +124,45 @@ def composite_fused_bwd_plain(G, table, counts, d_acc, d_T, T_final, tile, tiles
         T = T * torch.prod(torch.where(m, om, torch.ones_like(om)), dim=-1)
 
     carry = T_final * d_T
-    zero = torch.zeros((), device=G.device)
     for c0, T_entry in reversed(list(zip(chunks, entries))):
         Gc, dx, dy, raw, a, gate, om, T_exc, m = quants(c0, T_entry)
-        feats = Gc[..., HDR:]
-        s = torch.einsum("tpc,tkc->tpk", d_acc, feats)
-        w = torch.where(m, a * T_exc, zero)
-        ws = w * s
-        incl = torch.cumsum(ws, dim=-1)
-        tot = incl[..., -1:]
-        B = tot - incl
-        inv_om = 1.0 / om
-        da = (torch.where(m, T_exc * s, zero)
-              - torch.where(gate, inv_om, zero) * B
-              - torch.where(m, inv_om, zero) * carry[..., None])
-        live = gate & ~(raw >= 0.99)
-        dpow = torch.where(live, da * a, zero)
-        opac = Gc[..., 5][:, None, :]
-        dop = torch.where(live, da * a / torch.clamp(opac, min=1e-12), zero).sum(1)
-        ca, cb, cc = (Gc[..., i][:, None, :] for i in (2, 3, 4))
-        hdr = torch.stack([
-            (dpow * (-(ca * dx + cb * dy))).sum(1),
-            (dpow * (-(cc * dy + cb * dx))).sum(1),
-            (dpow * (-0.5 * dx * dx)).sum(1),
-            (dpow * (-dx * dy)).sum(1),
-            (dpow * (-0.5 * dy * dy)).sum(1),
-            dop,
-        ], dim=1)  # [NT, 6, k]
-        dfeats = torch.einsum("tpc,tpk->tck", d_acc, w)
+        hdr, dfeats, tot = pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry)
         k = Gc.shape[1]
         dGt[:, 0:6, c0:c0 + k] = hdr
         dGt[:, HDR:, c0:c0 + k] = dfeats
-        carry = carry + tot[..., 0]
+        carry = carry + tot
     return dGt
+
+
+def pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry):
+    """One chunk's reverse sweep (the Pallas `_bwd_kernel` formula, shared by
+    both compositors' backward): per-pair header gradients [NT, 6, k] (mx,
+    my, ca, cb, cc, op), feature gradients [NT, CF, k], and the chunk's total
+    of w·s per pixel [NT, PIX], which the carry takes on."""
+    zero = torch.zeros((), device=Gc.device)
+    s = torch.einsum("tpc,tkc->tpk", d_acc, Gc[..., HDR:])
+    w = torch.where(m, a * T_exc, zero)
+    incl = torch.cumsum(w * s, dim=-1)
+    tot = incl[..., -1:]
+    B = tot - incl
+    inv_om = 1.0 / om
+    da = (torch.where(m, T_exc * s, zero)
+          - torch.where(gate, inv_om, zero) * B
+          - torch.where(m, inv_om, zero) * carry[..., None])
+    live = gate & ~(raw >= 0.99)
+    dpow = torch.where(live, da * a, zero)
+    opac = Gc[..., 5][:, None, :]
+    dop = torch.where(live, da * a / torch.clamp(opac, min=1e-12), zero).sum(1)
+    ca, cb, cc = (Gc[..., i][:, None, :] for i in (2, 3, 4))
+    hdr = torch.stack([
+        (dpow * (-(ca * dx + cb * dy))).sum(1),
+        (dpow * (-(cc * dy + cb * dx))).sum(1),
+        (dpow * (-0.5 * dx * dx)).sum(1),
+        (dpow * (-dx * dy)).sum(1),
+        (dpow * (-0.5 * dy * dy)).sum(1),
+        dop,
+    ], dim=1)
+    return hdr, torch.einsum("tpc,tpk->tck", d_acc, w), tot[..., 0]
 
 
 def _check(G, table, counts, tile, *tensors):

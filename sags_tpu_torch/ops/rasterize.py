@@ -13,7 +13,8 @@ Stages, as in the JAX package:
        fused compositor forward and backward (CUDA kernels in
        `ops/composite.py`) under a `torch.autograd.Function`, the per-pair
        gradients scattered into dG deterministically;
-     * windowed (rendering, the default when the shapes allow it):
+     * windowed (rendering, the default when the shapes allow it, and
+       training under `train_windowed`):
        `_prepare_windowed` sorts the packed rows by (anchor tile, depth),
        adds slice-store copies of wide Gaussians, and either builds the
        window-local work list from a tiered pair sort (`windowed_sort =
@@ -21,11 +22,16 @@ Stages, as in the JAX package:
        leaves the depth order to the kernel (`"kernel"`,
        `composite_windowed_sorted`); see `ops/windowed.py`.
 
-The windowed path is forward-only here: its backward (`composite_windowed_bwd`
-on the TPU) is a later slice of the port and raises. `scan_impl` and
-`window_prefetch` are accepted and have no effect (TPU formulations of the
-same arithmetic); `ewa_impl="quad"`, `feature_precision` other than
-"highest", `window_ablate` and `windowed_bf16` raise.
+The host-table windowed path is differentiable: its backward is the CUDA
+kernel `composite_windowed_bwd` (per-pair gradients in table order) and the
+deterministic scatter by sorted-row id, from which autograd folds the
+slice-store copies' gradients back onto their parents; under
+`windowed_bf16` or `pallas_backward=False` it is the exact recompute through
+the classic compositor, as in the JAX package. `ewa_impl`,
+`feature_precision` and `windowed_bf16` select the windowed forward's
+variants; `scan_impl` and `window_prefetch` are accepted and have no effect
+(TPU formulations of the same arithmetic); `window_ablate` (a TPU timing
+diagnostic) raises.
 """
 
 from __future__ import annotations
@@ -323,11 +329,10 @@ def _pack_gaussians(pre: Preprocessed, obj_features: torch.Tensor,
     """[P, 32] rows: mx my ca cb cc op 0 0 | rgb obj(O) dz0 A B 1 | pad.
     `extras` appends the windowed path's columns 32..39 (`ops/windowed.py`
     COL_*): rect min x/y, rect w/h and dq as exact small floats, rcull2,
-    two zero columns; gradient-free."""
-    if pack_obj_bf16:
-        raise NotImplementedError(
-            "windowed_bf16 (the bf16 obj-channel pack of the windowed render) "
-            "is not ported yet: ROADMAP.md A.8")
+    two zero columns; gradient-free. `pack_obj_bf16` (with `extras` and 16
+    obj channels) appends columns 40..47: the obj channels rounded to bf16,
+    in pairs (lo = channel 2c, hi = 2c+1) bit-cast into float32;
+    gradient-free."""
     O = obj_features.shape[-1]
     width = _G_HDR + 3 + O + 4
     width = -(-width // 8) * 8
@@ -345,6 +350,10 @@ def _pack_gaussians(pre: Preprocessed, obj_features: torch.Tensor,
             pre.rmin_x, pre.rmin_y, pre.rmax_x - pre.rmin_x, pre.rmax_y - pre.rmin_y,
             _depth_quant(pre), pre.rcull2)]
         cols += [zero.detach(), zero.detach()]
+        if pack_obj_bf16 and O == 16:
+            u16 = obj_features.detach().to(torch.bfloat16).view(torch.int16).to(torch.int32)
+            packed = ((u16[:, 1::2] << 16) | (u16[:, 0::2] & 0xFFFF)).view(torch.float32)
+            cols += [packed[:, i] for i in range(8)]
     return torch.stack(cols, dim=-1)
 
 
@@ -815,34 +824,73 @@ def _windowed_chunk(cfg: RasterizeConfig) -> int:
 
 
 def _check_windowed_options(cfg: RasterizeConfig) -> None:
-    for bad, what in ((cfg.ewa_impl != "vpu", f"ewa_impl={cfg.ewa_impl!r}"),
-                      (cfg.feature_precision != "highest",
-                       f"feature_precision={cfg.feature_precision!r}"),
-                      (bool(cfg.window_ablate), f"window_ablate={cfg.window_ablate!r}")):
-        if bad:
-            raise NotImplementedError(
-                f"{what} of the windowed render is not ported yet: ROADMAP.md A.8")
+    if cfg.ewa_impl not in win.EWA:
+        raise ValueError(f"ewa_impl {cfg.ewa_impl!r} is not one of {sorted(win.EWA)}")
+    if cfg.feature_precision not in win.PREC:
+        raise ValueError(f"feature_precision {cfg.feature_precision!r} is not one of "
+                         f"{sorted(win.PREC)}")
+    if cfg.window_ablate:
+        raise NotImplementedError(
+            f"window_ablate={cfg.window_ablate!r} (a TPU timing diagnostic of the "
+            "windowed render) is not ported: ROADMAP.md A.8")
+
+
+def _windowed_kw(cfg: RasterizeConfig) -> dict:
+    return dict(alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min,
+                chunk=_windowed_chunk(cfg),
+                n_span=int(round(cfg.max_tiles_per_gaussian ** 0.5)))
 
 
 class _CompositeWindowedFn(torch.autograd.Function):
-    """Windowed compositor over the host-built work list. Its backward (the
-    TPU's `composite_windowed_bwd`) belongs to the next slice of the port."""
+    """Windowed compositor over the host-built work list (the custom VJP of
+    `sags_tpu/ops/rasterize.py:1283-1417`). Backward: the windowed backward
+    kernel, then the deterministic scatter of the per-pair gradients by
+    global sorted-row id (`table_rows`); under `windowed_bf16` or
+    `pallas_backward=False`, the exact recompute through the classic
+    compositor (forward at `cfg.chunk` for its own T_final, backward) over
+    the entries the window kept. Columns 32.. of dG_s are zero."""
 
     @staticmethod
-    def forward(ctx, G_s, table_local, counts, bases, dests, nblks, n_feat, tiles_x,
-                cfg):
+    def forward(ctx, G_s, table_rows, table_local, counts, bases, dests, nblks, n_feat,
+                tiles_x, cfg):
+        bf16_obj = bool(cfg.windowed_bf16) and G_s.shape[1] >= win.BF16_CH
         acc, T = win.composite_windowed(
             G_s, table_local, counts, bases, dests, nblks, cfg.tile, tiles_x,
-            alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min,
-            chunk=_windowed_chunk(cfg),
-            n_span=int(round(cfg.max_tiles_per_gaussian ** 0.5)))
+            ewa_impl=cfg.ewa_impl, feat_prec=cfg.feature_precision, bf16_obj=bf16_obj,
+            **_windowed_kw(cfg))
+        ctx.save_for_backward(G_s, table_rows, table_local, counts, bases, dests, nblks, T)
+        ctx.meta = (n_feat, tiles_x, cfg, bf16_obj, acc.shape[-1])
         return acc[..., :n_feat], T
 
     @staticmethod
     def backward(ctx, d_acc, d_T):
-        raise NotImplementedError(
-            "the gradient of the windowed render (composite_windowed_bwd, "
-            "ROADMAP.md B.5) is not ported yet: train with windowed=False")
+        G_s, table_rows, table_local, counts, bases, dests, nblks, T = ctx.saved_tensors
+        n_feat, tiles_x, cfg, bf16_obj, CF = ctx.meta
+        NT, PIX = T.shape
+        d_acc_full = torch.zeros((NT, PIX, CF), dtype=torch.float32, device=G_s.device)
+        if d_acc is not None:
+            d_acc_full[..., :n_feat] = d_acc
+        d_T = torch.zeros_like(T) if d_T is None else d_T.contiguous()
+        P_all = G_s.shape[0]
+        if bf16_obj or not cfg.pallas_backward:
+            # only the entries the windowed forward composited: a slot the
+            # window dropped (table_local −1) takes no gradient
+            table = torch.where(table_local.reshape(NT, -1) >= 0, table_rows, -1)
+            G32 = G_s[:, :win.KERNEL_CH].contiguous()
+            _, T_re = comp.composite_fused(G32, table, counts, cfg.tile, tiles_x,
+                                           alpha_min=cfg.alpha_min,
+                                           t_min=cfg.transmittance_min, chunk=cfg.chunk)
+            dGt = comp.composite_fused_bwd(G32, table, counts, d_acc_full, d_T, T_re,
+                                           cfg.tile, tiles_x, alpha_min=cfg.alpha_min,
+                                           t_min=cfg.transmittance_min, chunk=cfg.chunk)
+        else:
+            table = table_rows
+            dGt = win.composite_windowed_bwd(G_s, table_local, counts, bases, dests, nblks,
+                                             d_acc_full, d_T, T, cfg.tile, tiles_x,
+                                             **_windowed_kw(cfg))
+        dG = comp.scatter_rows(dGt, table, P_all)
+        dG_s = torch.cat([dG, dG.new_zeros((P_all, G_s.shape[1] - dG.shape[1]))], dim=1)
+        return dG_s, None, None, None, None, None, None, None, None, None
 
 
 class _CompositeWindowedSortedFn(torch.autograd.Function):
@@ -853,10 +901,8 @@ class _CompositeWindowedSortedFn(torch.autograd.Function):
     def forward(ctx, G_s, bases, dests, nblks, sstarts, sends, n_feat, tiles_x, cfg):
         acc, T, nv = win.composite_windowed_sorted(
             G_s, bases, dests, nblks, sstarts, sends, cfg.tile, tiles_x,
-            alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min,
-            chunk=_windowed_chunk(cfg),
-            n_span=int(round(cfg.max_tiles_per_gaussian ** 0.5)),
-            w_blocks=cfg.window_blocks, k_tile=cfg.tile_capacity)
+            w_blocks=cfg.window_blocks, k_tile=cfg.tile_capacity, ewa_impl=cfg.ewa_impl,
+            feat_prec=cfg.feature_precision, **_windowed_kw(cfg))
         ctx.mark_non_differentiable(nv)
         return acc[..., :n_feat], T, nv
 
@@ -886,10 +932,10 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
     """Render Gaussians (`sags_tpu.ops.rasterize`). `windowed=None` follows
     `cfg.windowed`; the windowed path runs when the shapes allow it (tile
     capacity a multiple of 128, a square R×R window, 16 object channels),
-    else the classic one. The classic path is differentiable w.r.t. means3d,
-    opacities, scales, quats, colors/shs and obj_features; the windowed one
-    renders only. Runs where its inputs live; CUDA tensors go through the
-    CUDA kernels."""
+    else the classic one. Both are differentiable w.r.t. means3d, opacities,
+    scales, quats, colors/shs and obj_features, except the windowed path with
+    `windowed_sort="kernel"`, which renders only. Runs where its inputs live;
+    CUDA tensors go through the CUDA kernels."""
     P = means3d.shape[0]
     dev = means3d.device
     W, H = camera.width, camera.height
@@ -932,12 +978,13 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
         tile_peak = torch.max(nv)  # the unclamped need
         ov_tile_live = ov_tile  # render path: no live/dead split
     elif use_windowed:
-        (G_s, _, table_local, wcounts, bases, dests, nblks, n_binned, ov_rect, ov_tile,
-         ov_win, ov_big) = _prepare_windowed(pre, obj_features, tiles_x, tiles_y, cfg)
+        (G_s, wtable, table_local, wcounts, bases, dests, nblks, n_binned, ov_rect,
+         ov_tile, ov_win, ov_big) = _prepare_windowed(pre, obj_features, tiles_x,
+                                                      tiles_y, cfg)
         accum, T_final = _CompositeWindowedFn.apply(
-            G_s, table_local, wcounts, bases, dests, nblks, n_feat, tiles_x, cfg)
+            G_s, wtable, table_local, wcounts, bases, dests, nblks, n_feat, tiles_x, cfg)
         tile_peak = torch.max(wcounts)
-        ov_tile_live = ov_tile  # render path: no live/dead split
+        ov_tile_live = ov_tile  # as in the JAX package: no live/dead split
     else:
         table, counts, n_binned, ov_rect, ov_tile, seg = bin_gaussians(
             pre, tiles_x, tiles_y, cfg)

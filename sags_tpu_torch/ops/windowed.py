@@ -1,11 +1,12 @@
-"""Windowed compositing: CUDA kernels `csrc/composite_windowed.cu` and
-`csrc/composite_windowed_sorted.cu` and their plain PyTorch versions.
+"""Windowed compositing: CUDA kernels `csrc/composite_windowed.cu`,
+`csrc/composite_windowed_sorted.cu` and `csrc/composite_windowed_bwd.cu` and
+their plain PyTorch versions.
 
 Port of `sags_tpu/ops/pallas_windowed.py` (`composite_windowed`,
-`composite_windowed_sorted`). The packed rows are sorted by (anchor tile,
-depth), where the anchor is the rect-min tile of a Gaussian's R×R binning
-window, so every row that can touch tile t lies in R contiguous spans of the
-sorted store `G_s` (one per anchor tile row). Span j of tile t covers the
+`composite_windowed_sorted`, `composite_windowed_bwd`). The packed rows are
+sorted by (anchor tile, depth), where the anchor is the rect-min tile of a
+Gaussian's R×R binning window, so every row that can touch tile t lies in R
+contiguous spans of the sorted store `G_s` (one per anchor tile row). Span j of tile t covers the
 128-row blocks `bases[j] .. bases[j] + nblks[j] - 1` and is numbered
 `dests[j]·128 ..` in the tile's window: the per-tile work list holds
 window-local ids, and id `i` with `dests[j]·128 <= i < (dests[j] +
@@ -30,6 +31,15 @@ Compositing runs in chunks of `chunk` pairs (`windowed_chunk`): a pixel cut
 by T·(1−α) < t_min stays cut to the end of its chunk. Empty slots (id −1)
 read as zero rows and fail the alpha gate.
 
+The forward compositors take the TPU kernels' options: `ewa_impl` ("vpu"
+longhand, "quad" the six-monomial expansion on tile-local coordinates),
+`feat_prec` ("highest" float32, "high" the bf16×2 split, "default" one bf16
+product) for the feature sums, and `bf16_obj` (`windowed_bf16`: the 16 obj
+channels read as bf16 from columns 40..47). The alpha and transmittance
+math is float32 in every variant. The backward (`composite_windowed_bwd`)
+is the TPU kernel's exact reverse sweep at full precision, longhand, with
+the transmittance in log space inside a chunk.
+
 `scan_impl` and `window_prefetch` are TPU formulations of the same
 arithmetic (the JAX package documents them as bit-exact) and have no
 counterpart here.
@@ -43,9 +53,10 @@ import torch
 
 from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
 from sags_tpu_torch.ops.binning import cull_c2, tile_qmin
-from sags_tpu_torch.ops.composite import _chunk_quants, tile_pixel_coords
+from sags_tpu_torch.ops.composite import _chunk_quants, pair_grads, tile_pixel_coords
 
 HDR = 8  # header rows (geometry); feature rows start here
+OBJ0, N_OBJ = HDR + 3, 16  # the obj channels among the feature columns
 # Packed-row extra columns of the windowed path (columns 32..39 of the
 # 40-wide layout; columns 0..31 are `rasterize._pack_gaussians`'s).
 COL_RMIN_X = 32
@@ -56,6 +67,8 @@ COL_DQ = 36
 COL_RCULL2 = 37  # exact alpha-cull radius² (rasterize.preprocess)
 COL_STORE = 38  # 1.0 marks a slice-store copy row (rasterize._prepare_windowed)
 WIDE_CH = 40
+COL_OBJ_BF16 = 40  # windowed_bf16: columns 40..47 pack the obj channels as bf16
+BF16_CH = 48
 KERNEL_CH = 32  # columns the compositors read: 8 header + 24 features
 
 SORT_ROWS = 16  # in-kernel sort extent: 16×128 = 2048 window slots
@@ -69,11 +82,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 WINDOWED = CudaKernel(
     "composite_windowed.cu", "sags_composite_windowed",
-    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P])
+    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I,
+     _P, _P, _P])
 SORTED = CudaKernel(
     "composite_windowed_sorted.cu", "sags_composite_windowed_sorted",
-    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-     _P, _P, _P, _P])
+    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+     _I, _P, _P, _P, _P])
+BWD = CudaKernel(
+    "composite_windowed_bwd.cu", "sags_composite_windowed_bwd",
+    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P,
+     _P, _P])
+EWA = {"vpu": 0, "quad": 1}
+PREC = {"highest": 0, "high": 1, "default": 2}
+_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can use
 
 
 def window_rows(ids: torch.Tensor, bases, dests, nblks, n_span: int) -> torch.Tensor:
@@ -91,44 +112,167 @@ def window_rows(ids: torch.Tensor, bases, dests, nblks, n_span: int) -> torch.Te
     return rows
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 → bfloat16 (round to nearest even) → float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def unpack_obj_bf16(G_s: torch.Tensor) -> torch.Tensor:
+    """The 16 obj channels of `windowed_bf16`'s columns 40..47 [P, 8]
+    (bf16 pairs in float32 bits, lo = channel 2c) → float32 [P, 16]."""
+    bits = G_s[:, COL_OBJ_BF16:COL_OBJ_BF16 + N_OBJ // 2].contiguous().view(torch.int32)
+    lo = (bits & 0xFFFF) << 16
+    hi = (bits >> 16) << 16  # the arithmetic shift's sign bits are shifted out
+    return torch.stack([lo, hi], dim=-1).reshape(-1, N_OBJ).view(torch.float32)
+
+
+def _feat_sum(w, feats, feat_prec):
+    """Σ_k w[t,p,k]·feats[t,k,c] at the TPU kernel's `_feat_dot` precision."""
+    if feat_prec == "highest":
+        return torch.einsum("tpk,tkc->tpc", w, feats)
+    wh, fh = bf16_round(w), bf16_round(feats)
+    acc = torch.einsum("tpk,tkc->tpc", wh, fh)
+    if feat_prec == "high":
+        acc = acc + torch.einsum("tpk,tkc->tpc", wh, bf16_round(feats - fh))
+        acc = acc + torch.einsum("tpk,tkc->tpc", bf16_round(w - wh), fh)
+    return acc
+
+
+def _quad_power(Gc, tile, bx, by):
+    """`ewa_impl="quad"`: the EWA exponent from six monomials of the
+    tile-local pixel coordinates, before the clamp (the kernel's order of
+    float32 operations). Gc [NT, k, ≥6]; bx, by [NT] tile origins."""
+    lin = torch.arange(tile * tile, device=Gc.device)
+    u = (lin % tile).to(torch.float32)[None, :, None]
+    v = (lin // tile).to(torch.float32)[None, :, None]
+    A, B, C = Gc[..., 2][:, None, :], Gc[..., 3][:, None, :], Gc[..., 4][:, None, :]
+    mx = (Gc[..., 0] - bx[:, None])[:, None, :]
+    my = (Gc[..., 1] - by[:, None])[:, None, :]
+    c0 = -0.5 * (A * mx * mx + C * my * my) - B * mx * my
+    p = c0 + (A * mx + B * my) * u
+    p = p + (C * my + B * mx) * v
+    p = p + (-0.5 * A) * (u * u)
+    p = p + (-B) * (u * v)
+    return p + (-0.5 * C) * (v * v)
+
+
 def _composite_rows_plain(G_s, rows, count_max: int, tile, tiles_x, alpha_min,
-                          t_min, chunk, tile_offset):
+                          t_min, chunk, tile_offset, ewa_impl="vpu",
+                          feat_prec="highest", bf16_obj=False):
     """Front-to-back compositing of the rows `rows` [NT, K] (−1 = empty) in
     chunks of `chunk`, over the chunks that start below `count_max`.
     Returns (acc [NT, tile², 24], T [NT, tile²])."""
     NT, K = rows.shape
     G = G_s[:, :KERNEL_CH]
+    if bf16_obj:
+        G = torch.cat([G[:, :OBJ0], unpack_obj_bf16(G_s), G[:, OBJ0 + N_OBJ:]], dim=1)
     px, py = tile_pixel_coords(NT, tiles_x, tile, tile_offset, G.device)
+    bx, by = px[:, 0], py[:, 0]
     T = torch.ones((NT, tile * tile), dtype=torch.float32, device=G.device)
     acc = torch.zeros((NT, tile * tile, KERNEL_CH - HDR), dtype=torch.float32,
                       device=G.device)
+    zero = torch.zeros((), device=G.device)
     for c0 in range(0, min(K, count_max), chunk):
         r = rows[:, c0:c0 + chunk]
         vm = r >= 0
-        Gc = torch.where(vm[..., None], G[torch.clamp(r, min=0)], torch.zeros((), device=G.device))
-        _, _, _, a, _, om, T_exc, m = _chunk_quants(Gc, vm, px, py, T, alpha_min, t_min)
-        w = torch.where(m, a * T_exc, torch.zeros_like(a))
-        acc = acc + torch.einsum("tpk,tkc->tpc", w, Gc[..., HDR:])
+        Gc = torch.where(vm[..., None], G[torch.clamp(r, min=0)], zero)
+        if ewa_impl == "quad":
+            p = _quad_power(Gc, tile, bx, by)
+            alpha = torch.clamp(Gc[..., 5][:, None, :] * torch.exp(torch.clamp(p, max=0.0)),
+                                max=0.99)
+            power = torch.where(p <= 0.01, torch.clamp(p, max=0.0), p)
+            gate = (power <= 0.0) & (alpha >= alpha_min)
+            a = torch.where(gate, alpha, zero)
+            om = 1.0 - a
+            cum = torch.cumprod(om, dim=-1)
+            T_exc = T[..., None] * torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]],
+                                             dim=-1)
+            m = gate & (T_exc * om >= t_min)
+        else:
+            _, _, _, a, _, om, T_exc, m = _chunk_quants(Gc, vm, px, py, T, alpha_min, t_min)
+        w = torch.where(m, a * T_exc, zero)
+        feats = Gc[..., HDR:]
+        if bf16_obj:
+            o0, o1 = OBJ0 - HDR, OBJ0 - HDR + N_OBJ
+            acc = acc + torch.cat([
+                _feat_sum(w, feats[..., :o0], feat_prec),
+                torch.einsum("tpk,tkc->tpc", bf16_round(w), feats[..., o0:o1]),
+                _feat_sum(w, feats[..., o1:], feat_prec)], dim=-1)
+        else:
+            acc = acc + _feat_sum(w, feats, feat_prec)
         T = T * torch.prod(torch.where(m, om, torch.ones_like(om)), dim=-1)
     return acc, T
 
 
 def composite_windowed_plain(G_s, table_local, counts, bases, dests, nblks, tile,
                              tiles_x, alpha_min=1.0 / 255.0, t_min=1e-4, chunk=512,
-                             n_span=4, tile_offset=0):
+                             n_span=4, tile_offset=0, ewa_impl="vpu",
+                             feat_prec="highest", bf16_obj=False):
     """Plain PyTorch version of `composite_windowed`."""
     rows = window_rows(table_local, bases, dests, nblks, n_span)
     count_max = int(counts.max()) if counts.numel() else 0
     return _composite_rows_plain(G_s, rows, count_max, tile, tiles_x, alpha_min,
-                                 t_min, chunk, tile_offset)
+                                 t_min, chunk, tile_offset, ewa_impl, feat_prec, bf16_obj)
 
 
-def _check(G_s, tile, n_span, *ints):
+def composite_windowed_bwd_plain(G_s, table_local, counts, bases, dests, nblks, d_acc,
+                                 d_T, T_final, tile, tiles_x, alpha_min=1.0 / 255.0,
+                                 t_min=1e-4, chunk=512, n_span=4, tile_offset=0):
+    """Plain PyTorch version of `composite_windowed_bwd` (the Pallas
+    `_bwd_kernel` math, vectorised over tiles): transmittance in log space
+    inside a chunk (T_exc = T_entry·exp(exclusive Σ log1p(−α)), the next
+    chunk entered at T_entry·exp(Σ_m log1p(−α))), the reverse sweep of
+    `composite.pair_grads`. Returns dGt [NT, 32, K] in table order."""
+    rows = window_rows(table_local, bases, dests, nblks, n_span)
+    NT, K = rows.shape
+    G = G_s[:, :KERNEL_CH]
+    px, py = tile_pixel_coords(NT, tiles_x, tile, tile_offset, G.device)
+    dGt = torch.zeros((NT, KERNEL_CH, K), dtype=torch.float32, device=G.device)
+    count_max = int(counts.max()) if counts.numel() else 0
+    chunks = list(range(0, min(K, count_max), chunk))
+    zero = torch.zeros((), device=G.device)
+
+    def quants(c0, T_entry):
+        r = rows[:, c0:c0 + chunk]
+        Gc = torch.where((r >= 0)[..., None], G[torch.clamp(r, min=0)], zero)
+        dx = Gc[..., 0][:, None, :] - px[:, :, None]
+        dy = Gc[..., 1][:, None, :] - py[:, :, None]
+        power = (-0.5 * (Gc[..., 2][:, None, :] * dx * dx + Gc[..., 4][:, None, :] * dy * dy)
+                 - Gc[..., 3][:, None, :] * dx * dy)
+        raw = Gc[..., 5][:, None, :] * torch.exp(power)
+        alpha = torch.clamp(raw, max=0.99)
+        gate = (power <= 0.0) & (alpha >= alpha_min)  # empty slots read zero rows
+        a = torch.where(gate, alpha, zero)
+        om = 1.0 - a
+        log_om = torch.log1p(-a)
+        T_exc = T_entry[..., None] * torch.exp(torch.cumsum(log_om, dim=-1) - log_om)
+        m = gate & (T_exc * om >= t_min)
+        return Gc, dx, dy, raw, a, gate, om, log_om, T_exc, m
+
+    T = torch.ones((NT, tile * tile), dtype=torch.float32, device=G.device)
+    entries = []
+    for c0 in chunks:  # forward sweep: chunk-entry transmittances
+        entries.append(T)
+        *_, log_om, _, m = quants(c0, T)
+        T = T * torch.exp(torch.where(m, log_om, zero).sum(dim=-1))
+
+    carry = T_final * d_T
+    for c0, T_entry in reversed(list(zip(chunks, entries))):
+        Gc, dx, dy, raw, a, gate, om, _, T_exc, m = quants(c0, T_entry)
+        hdr, dfeats, tot = pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry)
+        k = Gc.shape[1]
+        dGt[:, 0:6, c0:c0 + k] = hdr
+        dGt[:, HDR:, c0:c0 + k] = dfeats
+        carry = carry + tot
+    return dGt
+
+
+def _check(G_s, tile, n_span, *ints, width=WIDE_CH):
     dev = G_s.device
     if dev.type != "cuda":
         raise ValueError(f"the windowed compositors take CUDA tensors, not {dev.type}")
-    if G_s.dtype != torch.float32 or G_s.dim() != 2 or G_s.shape[1] < WIDE_CH:
-        raise ValueError(f"the windowed compositors take float32 G_s [P, >= {WIDE_CH}]")
+    if G_s.dtype != torch.float32 or G_s.dim() != 2 or G_s.shape[1] < width:
+        raise ValueError(f"the windowed compositors take float32 G_s [P, >= {width}]")
     if tile != 16:
         raise ValueError("the windowed compositors run 16x16 tiles (256 threads)")
     if not 1 <= n_span <= MAX_SPAN:
@@ -140,7 +284,8 @@ def _check(G_s, tile, n_span, *ints):
 
 def composite_windowed(G_s, table_local, counts, bases, dests, nblks, tile, tiles_x,
                        alpha_min=1.0 / 255.0, t_min=1e-4, chunk=512, n_span=4,
-                       tile_offset=0):
+                       tile_offset=0, ewa_impl="vpu", feat_prec="highest",
+                       bf16_obj=False):
     """Composite each tile's window-local work list `table_local`
     [NT, K/128, 128] (−1 padded) over `counts` [NT] entries, resolving ids
     through the span plan (`bases`, `dests`, `nblks`, [NT·n_span] each).
@@ -149,8 +294,9 @@ def composite_windowed(G_s, table_local, counts, bases, dests, nblks, tile, tile
     if G_s.device.type == "cpu":
         return composite_windowed_plain(G_s, table_local, counts, bases, dests, nblks,
                                         tile, tiles_x, alpha_min, t_min, chunk, n_span,
-                                        tile_offset)
-    _check(G_s, tile, n_span, table_local, counts, bases, dests, nblks)
+                                        tile_offset, ewa_impl, feat_prec, bf16_obj)
+    _check(G_s, tile, n_span, table_local, counts, bases, dests, nblks,
+           width=BF16_CH if bf16_obj else WIDE_CH)
     NT = counts.shape[0]
     K = table_local.numel() // max(NT, 1)
     if table_local.numel() != NT * K or bases.numel() != NT * n_span:
@@ -163,9 +309,50 @@ def composite_windowed(G_s, table_local, counts, bases, dests, nblks, tile, tile
     WINDOWED.launch(G_s.data_ptr(), G_s.shape[1], G_s.shape[0], table_local.data_ptr(),
                     counts.data_ptr(), bases.data_ptr(), dests.data_ptr(),
                     nblks.data_ptr(), n_span, NT, K, tile, tiles_x, int(tile_offset),
-                    float(alpha_min), float(t_min), int(chunk), acc.data_ptr(),
-                    T.data_ptr(), stream_ptr(G_s.device))
+                    float(alpha_min), float(t_min), int(chunk), EWA[ewa_impl],
+                    PREC[feat_prec], int(bool(bf16_obj)), acc.data_ptr(), T.data_ptr(),
+                    stream_ptr(G_s.device))
     return acc, T
+
+
+def composite_windowed_bwd(G_s, table_local, counts, bases, dests, nblks, d_acc, d_T,
+                           T_final, tile, tiles_x, alpha_min=1.0 / 255.0, t_min=1e-4,
+                           chunk=512, n_span=4, tile_offset=0):
+    """Per-pair gradients of `composite_windowed` (longhand, full precision)
+    given the cotangents `d_acc` [NT, tile², 24] and `d_T`, and the
+    forward's `T_final` [NT, tile²]. Returns dGt [NT, 32, K] in table order
+    (row 6-7 zero). CUDA tensors run the kernel, CPU tensors the plain
+    version."""
+    if G_s.device.type == "cpu":
+        return composite_windowed_bwd_plain(G_s, table_local, counts, bases, dests, nblks,
+                                            d_acc, d_T, T_final, tile, tiles_x, alpha_min,
+                                            t_min, chunk, n_span, tile_offset)
+    _check(G_s, tile, n_span, table_local, counts, bases, dests, nblks)
+    NT = counts.shape[0]
+    K = table_local.numel() // max(NT, 1)
+    PIX = tile * tile
+    if table_local.numel() != NT * K or bases.numel() != NT * n_span:
+        raise ValueError("table_local must be [NT, K/128, 128] and the plan [NT*n_span]")
+    if d_acc.shape != (NT, PIX, KERNEL_CH - HDR) or d_T.shape != (NT, PIX) \
+            or T_final.shape != (NT, PIX):
+        raise ValueError("d_acc [NT, PIX, 24], d_T and T_final [NT, PIX] expected")
+    for x in (d_acc, d_T, T_final):
+        if x.dtype != torch.float32 or x.device != G_s.device:
+            raise TypeError("d_acc, d_T and T_final must be float32 on G_s's device")
+    smem = BWD.function("sags_composite_windowed_bwd_smem", [_I, _I, _I],
+                        ctypes.c_size_t)(K, PIX, int(chunk))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"tile_capacity {K} needs {smem} B of shared memory")
+    G_s, table_local = G_s.contiguous(), table_local.contiguous()
+    counts, bases, dests, nblks = (x.contiguous() for x in (counts, bases, dests, nblks))
+    d_acc, d_T, T_final = d_acc.contiguous(), d_T.contiguous(), T_final.contiguous()
+    dGt = torch.empty((NT, KERNEL_CH, K), dtype=torch.float32, device=G_s.device)
+    BWD.launch(G_s.data_ptr(), G_s.shape[1], G_s.shape[0], table_local.data_ptr(),
+               counts.data_ptr(), bases.data_ptr(), dests.data_ptr(), nblks.data_ptr(),
+               n_span, NT, K, tile, tiles_x, int(tile_offset), float(alpha_min),
+               float(t_min), int(chunk), d_acc.data_ptr(), d_T.data_ptr(),
+               T_final.data_ptr(), dGt.data_ptr(), stream_ptr(G_s.device))
+    return dGt
 
 
 def _sort_width(w_blocks: int) -> int:
@@ -218,7 +405,7 @@ def window_keys_plain(G_s, bases, dests, nblks, sstarts, sends, tile, tiles_x,
 def composite_windowed_sorted_plain(G_s, bases, dests, nblks, sstarts, sends, tile,
                                     tiles_x, alpha_min=1.0 / 255.0, t_min=1e-4,
                                     chunk=512, n_span=4, w_blocks=12, k_tile=512,
-                                    tile_offset=0):
+                                    tile_offset=0, ewa_impl="vpu", feat_prec="highest"):
     """Plain PyTorch version of `composite_windowed_sorted`."""
     keys = window_keys_plain(G_s, bases, dests, nblks, sstarts, sends, tile, tiles_x,
                              alpha_min, n_span, w_blocks, tile_offset)
@@ -232,13 +419,14 @@ def composite_windowed_sorted_plain(G_s, bases, dests, nblks, sstarts, sends, ti
     rows = window_rows(ids, bases, dests, nblks, n_span)
     count_max = min(int(nv.max()), k_tile) if NT else 0
     acc, T = _composite_rows_plain(G_s, rows, count_max, tile, tiles_x, alpha_min,
-                                   t_min, chunk, tile_offset)
+                                   t_min, chunk, tile_offset, ewa_impl, feat_prec)
     return acc, T, nv
 
 
 def composite_windowed_sorted(G_s, bases, dests, nblks, sstarts, sends, tile, tiles_x,
                               alpha_min=1.0 / 255.0, t_min=1e-4, chunk=512, n_span=4,
-                              w_blocks=12, k_tile=512, tile_offset=0):
+                              w_blocks=12, k_tile=512, tile_offset=0, ewa_impl="vpu",
+                              feat_prec="highest"):
     """Forward-only windowed compositor with in-kernel depth ordering.
     `sstarts`/`sends` [NT·n_span] bound each span's rows. Returns (acc
     [NT, tile², 24], T_final [NT, tile²], nv [NT] int32: each tile's valid
@@ -249,7 +437,8 @@ def composite_windowed_sorted(G_s, bases, dests, nblks, sstarts, sends, tile, ti
     if G_s.device.type == "cpu":
         return composite_windowed_sorted_plain(G_s, bases, dests, nblks, sstarts, sends,
                                                tile, tiles_x, alpha_min, t_min, chunk,
-                                               n_span, w_blocks, k_tile, tile_offset)
+                                               n_span, w_blocks, k_tile, tile_offset,
+                                               ewa_impl, feat_prec)
     _check(G_s, tile, n_span, bases, dests, nblks, sstarts, sends)
     NT = bases.numel() // n_span
     G_s = G_s.contiguous()
@@ -263,6 +452,6 @@ def composite_windowed_sorted(G_s, bases, dests, nblks, sstarts, sends, tile, ti
                   dests.data_ptr(), nblks.data_ptr(), sstarts.data_ptr(),
                   sends.data_ptr(), n_span, NT, w_blocks, _sort_width(w_blocks),
                   int(k_tile), tile, tiles_x, int(tile_offset), float(alpha_min),
-                  float(t_min), int(chunk), acc.data_ptr(), T.data_ptr(),
-                  nv.data_ptr(), stream_ptr(G_s.device))
+                  float(t_min), int(chunk), EWA[ewa_impl], PREC[feat_prec],
+                  acc.data_ptr(), T.data_ptr(), nv.data_ptr(), stream_ptr(G_s.device))
     return acc, T, nv

@@ -83,7 +83,11 @@ def _loss_fn(params: gm.Params, clf: ClassifierParams, m: gm.GaussianMap,
              camera: Camera, gt_image, gt_objects, use_cls3d: bool, draws,
              cfg: SLAMConfig):
     m = gm.with_params(m, params)
-    out = render_map(m, camera, cfg, windowed=bool(cfg.raster.train_windowed))
+    # `train_windowed` trains through the windowed render only with the
+    # windowed backward kernel; `pallas_backward=False` pins the classic
+    # path, as in the JAX package (`fused=False` disables its windowed path)
+    windowed = bool(cfg.raster.train_windowed and cfg.raster.pallas_backward)
+    out = render_map(m, camera, cfg, windowed=windowed)
     _, l1 = l1_loss(out.color, gt_image)
     _, s = ssim(out.color, gt_image)
     loss_rgb = (1.0 - cfg.opt.lambda_dssim) * l1 + cfg.opt.lambda_dssim * (1.0 - s)

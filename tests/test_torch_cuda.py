@@ -160,14 +160,14 @@ WIN_CFG = RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=256, window_b
                           windowed_big_capacity=64, windowed_chunk=128)
 
 
-def _prepared(device, build_table, seed=0):
+def _prepared(device, build_table, seed=0, cfg=WIN_CFG):
     means, opac, scales, quats, colors, objs = (t.to(device) for t in _scene(seed))
     scales[:12] *= 6.0  # a few wide splats for the slice store
     cam = make_camera(torch.eye(3, device=device), torch.zeros(3, device=device),
                       W, H, 1.2, 0.9)
-    pre = rz.preprocess(means, opac, scales, quats, cam, WIN_CFG, colors=colors)
-    return rz._prepare_windowed(pre, objs, TILES_X, TILES_Y, WIN_CFG,
-                                build_table=build_table)
+    pre = rz.preprocess(means, opac, scales, quats, cam, cfg, colors=colors)
+    return rz._prepare_windowed(pre, objs, TILES_X, TILES_Y, cfg,
+                                 build_table=build_table)
 
 
 def test_windowed_kernels_match_plain(device):
@@ -195,6 +195,95 @@ def test_windowed_kernels_match_plain(device):
     assert torch.equal(nv, nv_p) and int(nv.sum()) > 0
     torch.testing.assert_close(acc, acc_p, atol=1e-3, rtol=0)
     torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+
+
+def test_windowed_bwd_kernel_matches_plain(device):
+    """`composite_windowed_bwd` against its plain version: 2e-4 relative per
+    output row (the bar of the fused backward), zero where the plain version
+    is zero, and the scattered dG_s bitwise reproducible."""
+    kw = dict(alpha_min=WIN_CFG.alpha_min, t_min=WIN_CFG.transmittance_min, chunk=128,
+              n_span=4)
+    G_s, table, tl, counts, bases, dests, nblks, *_ = _prepared(device, True)
+    acc, T = windowed.composite_windowed(G_s, tl, counts, bases, dests, nblks, 16,
+                                         TILES_X, **kw)
+    g = torch.Generator(device=device).manual_seed(3)
+    d_acc = torch.randn(acc.shape, generator=g, device=device)
+    d_T = torch.randn(T.shape, generator=g, device=device)
+    bargs = (G_s, tl, counts, bases, dests, nblks, d_acc, d_T, T, 16, TILES_X)
+    before = windowed.BWD.launches
+    dgt = windowed.composite_windowed_bwd(*bargs, **kw)
+    assert windowed.BWD.launches == before + 1
+    dgt_p = windowed.composite_windowed_bwd_plain(*bargs, **kw)
+    scale = dgt_p.abs().amax(dim=(0, 2))
+    live = scale > 0
+    rel = (dgt - dgt_p).abs().amax(dim=(0, 2))[live] / scale[live]
+    assert float(rel.max()) <= 2e-4, rel
+    assert torch.equal(dgt[:, ~live], torch.zeros_like(dgt[:, ~live]))
+    P_all = G_s.shape[0]
+    dG = composite.scatter_rows(windowed.composite_windowed_bwd(*bargs, **kw), table, P_all)
+    assert torch.equal(dG, composite.scatter_rows(dgt, table, P_all))
+
+
+@pytest.mark.parametrize("ewa,prec,bf16", [("quad", "highest", False),
+                                           ("vpu", "high", False),
+                                           ("vpu", "default", False),
+                                           ("vpu", "highest", True),
+                                           ("quad", "default", True)])
+def test_windowed_variants_match_plain(device, ewa, prec, bf16):
+    """Each forward variant of both windowed compositors against its plain
+    version: acc and T to 1e-3 absolute (the windowed bar), nv exact. Where
+    the weight w = α·T is rounded to bf16 ("default", the bf16 obj
+    channels), a last-bit difference in T can move w across a rounding tie:
+    those channels are held to one bf16 step of every weight, 2^-7 times
+    the channel's largest feature (`chip_smoke.py` holds the same bar)."""
+    cfg = dataclasses.replace(WIN_CFG, windowed_bf16=bf16)
+    kw = dict(alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min, chunk=128, n_span=4,
+              ewa_impl=ewa, feat_prec=prec)
+    G_s, _, tl, counts, bases, dests, nblks, *_ = _prepared(device, True, cfg=cfg)
+    args = (G_s, tl, counts, bases, dests, nblks, 16, TILES_X)
+    feat_max = G_s[:, 8:32].abs().amax(dim=0)
+    bar = torch.full_like(feat_max, 1e-3)
+    if prec == "default":
+        bar = torch.maximum(bar, 2.0 ** -7 * feat_max)
+    elif bf16:
+        bar[3:19] = torch.maximum(bar[3:19], 2.0 ** -7 * feat_max[3:19])
+    acc, T = windowed.composite_windowed(*args, bf16_obj=bf16, **kw)
+    acc_p, T_p = windowed.composite_windowed_plain(*args, bf16_obj=bf16, **kw)
+    assert bool(((acc - acc_p).abs().amax(dim=(0, 1)) <= bar).all())
+    torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+    if bf16:
+        return  # the in-kernel sort never takes the bf16 rows
+    G_s, bases, dests, nblks, ss, se, *_ = _prepared(device, False)
+    skw = dict(kw, w_blocks=WIN_CFG.window_blocks, k_tile=WIN_CFG.tile_capacity)
+    sargs = (G_s, bases, dests, nblks, ss, se, 16, TILES_X)
+    acc, T, nv = windowed.composite_windowed_sorted(*sargs, **skw)
+    acc_p, T_p, nv_p = windowed.composite_windowed_sorted_plain(*sargs, **skw)
+    assert torch.equal(nv, nv_p)
+    assert bool(((acc - acc_p).abs().amax(dim=(0, 1)) <= bar).all())
+    torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_windowed_gradients_on_the_card_match_the_cpu(device, bf16):
+    """The windowed rasterizer's gradients of all six inputs (slice store
+    on), on the card (kernels) and on the CPU (plain versions): 2e-4
+    relative per gradient tensor; under `windowed_bf16` through the classic
+    recompute."""
+    cfg = dataclasses.replace(WIN_CFG, windowed_bf16=bf16, chunk=32)
+    grads = {}
+    for dev in (torch.device("cpu"), device):
+        leaves = [t.to(dev).requires_grad_(True) for t in _scene(4)]
+        means, opac, scales, quats, colors, objs = leaves
+        cam = make_camera(torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                          W, H, 1.2, 0.9)
+        out = rz.rasterize(means, opac, scales * 1.5, quats, cam, cfg, colors=colors,
+                           obj_features=objs)
+        loss = (out.color.square().sum() + out.depth.sum() + out.objects.sum()
+                + out.final_T.sum())
+        grads[dev.type] = torch.autograd.grad(loss, leaves)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        rel = float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-12))
+        assert rel <= 2e-4, rel
 
 
 def test_windowed_render_on_the_card(device):

@@ -138,15 +138,21 @@ def test_rasterize_gradients_match_jax(case):
 
 
 def test_windowed_path_raises():
-    """The windowed render runs (`tests/test_torch_windowed.py`); its options
-    that are not ported yet raise instead of rendering something else."""
+    """The windowed render runs (`tests/test_torch_windowed.py`), and so do
+    its options `windowed_bf16`, `ewa_impl="quad"` and `feature_precision`
+    (`tests/test_torch_windowed_train.py` holds them against the JAX
+    package); `window_ablate`, a TPU timing diagnostic, raises instead of
+    rendering something else."""
     means, opac, scales, quats, colors, *_ = _scene(0, 16)
     _, tc = _cams((0.0, 0.0, 0.0))
     args = [torch.as_tensor(a) for a in (means, opac, scales, quats)]
     out = trz.rasterize(*args, tc, tconf.RasterizeConfig(), colors=torch.as_tensor(colors))
     assert out.color.shape == (3, H, W)
-    for bad in (dict(windowed_bf16=True), dict(ewa_impl="quad"),
-                dict(feature_precision="default"), dict(window_ablate="nosel")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            trz.rasterize(*args, tc, tconf.RasterizeConfig(windowed=False, **bad),
+    for ok in (dict(windowed_bf16=True), dict(ewa_impl="quad"),
+               dict(feature_precision="default")):
+        o = trz.rasterize(*args, tc, tconf.RasterizeConfig(windowed=False, **ok),
                           colors=torch.as_tensor(colors), windowed=True)
+        assert o.color.shape == (3, H, W) and bool(torch.isfinite(o.color).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        trz.rasterize(*args, tc, tconf.RasterizeConfig(windowed=False, window_ablate="nosel"),
+                      colors=torch.as_tensor(colors), windowed=True)

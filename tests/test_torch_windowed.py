@@ -241,7 +241,9 @@ def test_occupancy_and_budgets_match_jax():
 
 
 def test_windowed_render_is_forward_only():
-    """The windowed gradient is the next slice: asking for it raises."""
+    """The kernel-sort render is forward-only, as in the JAX package: asking
+    for its gradient raises. The host-table render differentiates
+    (`tests/test_torch_windowed_train.py` holds its gradients)."""
     means, opac, scales, quats, colors, objs = _scene(n=64)
     _, tc = _cams()
     leaves = [torch.tensor(a, requires_grad=True) for a in (means, opac, scales, quats)]
@@ -249,5 +251,10 @@ def test_windowed_render_is_forward_only():
         cfg = tconf.RasterizeConfig(**BASE, windowed_sort=sort)
         out = trz.rasterize(*leaves, tc, cfg, colors=torch.as_tensor(colors),
                             obj_features=torch.as_tensor(objs))
-        with pytest.raises(NotImplementedError):
-            out.color.sum().backward()
+        if sort == "kernel":
+            with pytest.raises(NotImplementedError):
+                out.color.sum().backward()
+        else:
+            grads = torch.autograd.grad(out.color.sum(), leaves)
+            assert all(bool(torch.isfinite(g).all()) for g in grads)
+            assert float(grads[0].abs().sum()) > 0
