@@ -13,15 +13,16 @@ Phases, each failing the run (non-zero exit, no result line):
        1e-3 absolute, composite_fused_bwd to 2e-4 relative per output row,
        and the scattered dG bitwise equal across two backward runs;
      - windowed path, K = 1024, windowed_chunk 512, R = 4, slice store on:
-       composite_windowed and composite_windowed_sorted to 1e-3 absolute
-       (nv exact), composite_windowed_bwd to 2e-4 relative per output row
-       with the scattered dG_s bitwise equal across two runs, each forward
-       option (ewa_impl "quad", feature_precision "high" and "default",
-       windowed_bf16) against its plain version and against the float32
-       longhand render at the JAX package's bars, sort_blocks on
-       [1280, 16, 128] random int32 exactly equal to torch.sort, and the
-       kernel-sort compositor bitwise equal to the host-table one on every
-       tile the 16-block window did not cut;
+       composite_windowed and composite_windowed_sorted bitwise equal to
+       their plain versions (nv exact), composite_windowed_bwd to 2e-4
+       relative per output row with the scattered dG_s bitwise equal across
+       two runs, each forward option (ewa_impl "quad", feature_precision
+       "high" and "default", windowed_bf16) bitwise equal to its plain
+       version and, against the float32 longhand render, different and
+       within the JAX package's bars, sort_blocks on [1280, 16, 128] random
+       int32 exactly equal to torch.sort, and the kernel-sort compositor
+       bitwise equal to the host-table one on every tile the 16-block
+       window did not cut;
   3. drive `SLAMPipeline.run` (fused front-end, GICP tracking) at the
      pipeline bench's operating point for 32 warm + 16 timed frames and check
      finite, falling losses, the trajectory (ATE < 0.12 m over the first
@@ -31,15 +32,17 @@ Phases, each failing the run (non-zero exit, no result line):
   4. `SLAMPipeline.evaluate` of that map over every 6th frame at the
      estimated poses, windowed with the host table (the default), windowed
      with the kernel sort, and classic: PSNR / SSIM / LPIPS, coverage, and
-     the render's time; each windowed mode must launch its compositor, agree
-     with the plain functions on one frame (1e-3) and with the classic
-     render (PSNR between the two);
+     the render's time; each windowed mode must launch its compositor and
+     agree bitwise with the plain functions on one frame, and its PSNR
+     against the classic render is reported;
   5. `SLAMPipeline.run` with `train_windowed=True` over the loop's first
      16 + 8 frames: finite, falling losses, composite_windowed and
      composite_windowed_bwd launched once per training step and the classic
      compositor never, the ATE within 1% of the classic loop's over the
-     same frames, and two backward passes of the windowed loss on the
-     newest keyframe bitwise equal in all seven parameter groups.
+     same frames, two backward passes of the windowed loss on the newest
+     keyframe bitwise equal in all seven parameter groups, and
+     composite_windowed_bwd at the loop's own shapes on that keyframe to
+     2e-4 relative per output row of its plain version.
 Launch counts are zeroed just before each main path (each loop, each eval
 mode) and read just after. The line before the last holds each kernel's
 launches on its path, its time, its plain version's time, the library
@@ -268,13 +271,15 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
            "n_binned": int(n_binned), "overflow_window": int(ov_win),
            "overflow_big": int(ov_big), "overflow_tile": int(ov_tile)}
 
-    # -- composite_windowed: 1e-3 absolute on acc and T
+    # -- composite_windowed: acc and T bitwise equal (the plain version takes
+    # the kernel's float32 operations in its order)
     args = (G_s, tl, counts, bases, dests, nblks, 16, tiles_x)
     acc, T = win.composite_windowed(*args, **kw)
     acc_p, T_p = win.composite_windowed_plain(*args, **kw)
     torch.cuda.synchronize()
     err = max(float((acc - acc_p).abs().max()), float((T - T_p).abs().max()))
-    assert err <= 1e-3, f"composite_windowed disagrees: {err}"
+    assert torch.equal(acc, acc_p) and torch.equal(T, T_p), \
+        f"composite_windowed disagrees with its plain version: {err}"
     rows = win.window_rows(tl, bases, dests, nblks, 4)
     kept = int((rows >= 0).sum())
     n_rows = int(torch.unique(rows[rows >= 0]).numel())
@@ -331,7 +336,8 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
     torch.cuda.synchronize()
     assert torch.equal(nv, nv_p), "composite_windowed_sorted: nv disagrees"
     err_s = max(float((acc_s - acc_sp).abs().max()), float((T_s - T_sp).abs().max()))
-    assert err_s <= 1e-3, f"composite_windowed_sorted disagrees: {err_s}"
+    assert torch.equal(acc_s, acc_sp) and torch.equal(T_s, T_sp), \
+        f"composite_windowed_sorted disagrees with its plain version: {err_s}"
     del acc_sp, T_sp
     keys = win.window_keys_plain(G2, b2, d2, n2, ss, se, 16, tiles_x, cfg.alpha_min, 4, 16)
     order = torch.sort(keys, dim=1).values[:, :K]
@@ -364,7 +370,8 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
         live_pixel_pairs=spairs, compare_exchanges=ce, nv_total=int(nv.sum()),
         overflow_window_raw=int(ov_raw))
 
-    variants = variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, sargs, skw)
+    variants = variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, acc_s, sargs,
+                              skw)
 
     # -- the kernel sort against the host table at the same 16-block budget:
     # the same bits on every tile whose spans all fit the window
@@ -398,8 +405,8 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
           "window_blocks_host": cfg.window_blocks, "rows": out["rows"],
           "n_binned": out["n_binned"], "overflow_window_host": out["overflow_window"],
           "overflow_big": out["overflow_big"], "overflow_tile": out["overflow_tile"],
-          "composite_windowed_max_abs_err": err,
-          "composite_windowed_sorted_max_abs_err": err_s, "nv_exact": True,
+          "composite_windowed_bitwise": True, "composite_windowed_sorted_bitwise": True,
+          "nv_exact": True,
           "nv_total": int(nv.sum()), "overflow_window_raw_16_blocks": int(ov_raw),
           "kernel_sort_bitwise_tiles": n_uncut, "tiles": NT, "sort_blocks_exact": True,
           "composite_windowed_bwd_rel_err": rel_b, "dG_s_bitwise_reproducible": True,
@@ -407,15 +414,18 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
     return out
 
 
-def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, sargs, skw):
-    """The windowed compositors' options, each kernel against its plain
-    version (1e-3 absolute on acc and T, nv exact; see `against_plain` for
-    the tiers that round weights to bf16), and each against the
-    full-precision longhand render (`acc`, `T`) at the JAX package's bars
-    (`tests/test_pallas_tpu.py:181-283`): `windowed_bf16` rgb, depth and T
-    bitwise equal, obj within 2e-2 relative and not equal;
-    `feature_precision` "high" within 1e-4 and "default" within 8e-3 on
-    rgb, T bitwise equal; `ewa_impl="quad"` within 2e-3 on rgb and T."""
+def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, acc_s, sargs, skw):
+    """The windowed compositors' options. Each kernel against its plain
+    version: acc and T bitwise equal, nv exact (the plain version takes the
+    kernel's float32 operations in its order, `windowed._composite_rows_plain`,
+    so a weight rounds to bf16 alike in both), and each option's rgb not
+    equal to the float32 longhand render's (`acc`, `T`; `acc_s` for the
+    kernel sort), so an option the kernel ignored fails. Each against that
+    render at the JAX package's bars (`tests/test_pallas_tpu.py:181-283`):
+    `windowed_bf16` rgb, depth and T bitwise equal, obj within 2e-2
+    relative and not equal; `feature_precision` "high" within 1e-4 and
+    "default" within 8e-3 on rgb, T bitwise equal; `ewa_impl="quad"` within
+    2e-3 on rgb and T."""
     import dataclasses
 
     import torch
@@ -424,30 +434,21 @@ def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, sargs, skw):
     from sags_tpu_torch.ops import windowed as win
 
     res = {}
+    rgb, obj, rest = slice(0, 3), slice(3, 19), slice(19, 24)
 
     def against_plain(name, fn, plain, *fargs, **fkw):
-        """acc and T to 1e-3 absolute. Where the weight w = α·T is rounded
-        to bf16 ("default", bf16 obj), the kernel's and the plain version's
-        T differ in the last bit (another product order), which can move w
-        across a rounding tie: one bf16 step (≤ 2^-7·w) per pair, so channel
-        c of acc is held to 2^-7 · max |feature c| (Σ w ≤ 1) instead."""
         got = fn(*fargs, **fkw)
         want = plain(*fargs, **fkw)
         torch.cuda.synchronize()
         if len(got) == 3:
             assert torch.equal(got[2], want[2]), f"{name}: nv disagrees"
-        d_acc = (got[0] - want[0]).abs().amax(dim=(0, 1))
-        bar = torch.full_like(d_acc, 1e-3)
-        if fkw.get("feat_prec") == "default":
-            bar = torch.maximum(bar, 2.0 ** -7 * feat_max)
-        elif fkw.get("bf16_obj"):
-            bar[obj] = torch.maximum(bar[obj], 2.0 ** -7 * feat_max[obj])
-        err = max(float(d_acc.max()), float((got[1] - want[1]).abs().max()))
-        res[name] = {"max_abs_err": err, "max_err_over_bar": float((d_acc / bar).max()),
+        differ = ((got[0] != want[0]).any(dim=-1) | (got[1] != want[1]))
+        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        res[name] = {"max_abs_err": err, "pixels_not_bitwise": int(differ.sum()),
                      "ms": cuda_ms(lambda: fn(*fargs, **fkw), 10)}
         emit({"phase": "variant", "name": name, **res[name]})
-        assert bool((d_acc <= bar).all()) and float((got[1] - want[1]).abs().max()) <= 1e-3, \
-            f"{name} disagrees with its plain version: {err}"
+        assert not bool(differ.any()), \
+            f"{name}: {int(differ.sum())} pixels differ from the plain version (max {err})"
         return got
 
     bcfg = dataclasses.replace(cfg, windowed_bf16=True)
@@ -455,8 +456,6 @@ def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, sargs, skw):
         G_b, _, tl, counts, bases, dests, nblks, *_ = rz._prepare_windowed(
             pre, objs, tiles_x, tiles_y, bcfg)
     args = (G_b, tl, counts, bases, dests, nblks, 16, tiles_x)
-    rgb, obj, rest = slice(0, 3), slice(3, 19), slice(19, 24)
-    feat_max = G_b[:, 8:32].abs().amax(dim=0)
     tiers = {"quad": dict(ewa_impl="quad"), "high": dict(feat_prec="high"),
              "default": dict(feat_prec="default")}
     for name, vkw in tiers.items():
@@ -467,13 +466,16 @@ def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, sargs, skw):
         d_T = float((t - T).abs().max())
         res[f"composite_windowed:{name}"].update(rgb_vs_highest=d_rgb, T_vs_highest=d_T)
         bar = {"quad": 2e-3, "high": 1e-4, "default": 8e-3}[name]
-        assert d_rgb <= bar, f"{name}: rgb {d_rgb} from the float32 longhand render"
+        assert 0.0 < d_rgb <= bar, f"{name}: rgb {d_rgb} from the float32 longhand render"
         if name == "quad":
             assert d_T <= bar, f"quad: T {d_T} from the longhand render"
         else:
             assert torch.equal(t, T), f"{name}: T differs from the highest tier"
-        against_plain(f"composite_windowed_sorted:{name}", win.composite_windowed_sorted,
-                      win.composite_windowed_sorted_plain, *sargs, **skw, **vkw)
+        a_s, _, _ = against_plain(f"composite_windowed_sorted:{name}",
+                                  win.composite_windowed_sorted,
+                                  win.composite_windowed_sorted_plain, *sargs, **skw, **vkw)
+        assert not torch.equal(a_s[..., rgb], acc_s[..., rgb]), \
+            f"composite_windowed_sorted:{name}: rgb equals the longhand render's"
 
     a, t = against_plain("composite_windowed:bf16", win.composite_windowed,
                          win.composite_windowed_plain, *args, **kw, bf16_obj=True)
@@ -654,6 +656,7 @@ def slam_windowed_phase(device, frames, classic, n_warm=16, n_timed=8):
         out = slam_step.render_map(m, kf.camera, pipe.cfg, windowed=True)
         occ = rz.windowed_occupancy(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
                                     gm.get_rotation(m), kf.camera, r, active_mask=m.active)
+    bwd = loop_bwd_check(device, pipe, kf.camera)
 
     poses = np.concatenate([warm.poses_est, timed.poses_est])
     gt = np.concatenate([warm.poses_gt, timed.poses_gt])
@@ -677,7 +680,8 @@ def slam_windowed_phase(device, frames, classic, n_warm=16, n_timed=8):
           "live_slice_store_copies": int(occ["live_copies"]),
           "n_active": int(m.active.sum()), "launches": launches,
           "launches_per_frame": {k: v / n_frames for k, v in launches.items()},
-          "gradients_bitwise_equal": same, "gradients_bitwise_equal_cls3d_step": same_cls3d})
+          "gradients_bitwise_equal": same, "gradients_bitwise_equal_cls3d_step": same_cls3d,
+          "composite_windowed_bwd_at_loop": bwd})
     assert np.isfinite(losses).all(), "non-finite loss"
     assert len(losses) == n_frames == steps, (len(losses), steps)
     assert last_mean < first_mean, (first_mean, last_mean)
@@ -687,7 +691,46 @@ def slam_windowed_phase(device, frames, classic, n_warm=16, n_timed=8):
     for sym in ("sags_composite_fused", "sags_composite_fused_bwd"):
         assert launches[sym] == 0, f"{sym} launched in the windowed loop"
     assert all(same.values()), f"windowed gradients not bitwise reproducible: {same}"
+    assert bwd["rel_err"] <= 2e-4, f"composite_windowed_bwd at the loop's shapes: {bwd}"
     return launches, n_frames
+
+
+def loop_bwd_check(device, pipe, camera):
+    """`composite_windowed_bwd` against its plain version at the shapes the
+    windowed loop trains with (its final window, R, tile capacity and slice
+    store) on the inputs `rasterize` prepares for `camera`, with seeded
+    cotangents: 2e-4 relative per output row, as at the kernel cell."""
+    import torch
+
+    from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.ops import rasterize as rz
+    from sags_tpu_torch.ops import windowed as win
+
+    m, rc = pipe.state.map, pipe.cfg.raster
+    tiles_x, tiles_y = -(-camera.width // rc.tile), -(-camera.height // rc.tile)
+    kw = rz._windowed_kw(rc)
+    with torch.no_grad():
+        pre = rz.preprocess(m.xyz, gm.get_opacity(m), gm.get_scaling(m), gm.get_rotation(m),
+                            camera, rc, shs=gm.get_shs(m), sh_degree=pipe.cfg.map.sh_degree,
+                            active_mask=m.active)
+        G_s, _, tl, counts, b, d, n, *_ = rz._prepare_windowed(pre, m.obj_dc, tiles_x,
+                                                               tiles_y, rc)
+    acc, T = win.composite_windowed(G_s, tl, counts, b, d, n, rc.tile, tiles_x, **kw)
+    g = torch.Generator(device=device).manual_seed(2)
+    d_acc = torch.randn(acc.shape, generator=g, device=device)
+    d_T = torch.randn(T.shape, generator=g, device=device)
+    bargs = (G_s, tl, counts, b, d, n, d_acc, d_T, T, rc.tile, tiles_x)
+    dGt = win.composite_windowed_bwd(*bargs, **kw)
+    dGt_p = win.composite_windowed_bwd_plain(*bargs, **kw)
+    torch.cuda.synchronize()
+    scale = dGt_p.abs().amax(dim=(0, 2))
+    live = scale > 0
+    rel = float(((dGt - dGt_p).abs().amax(dim=(0, 2))[live] / scale[live]).max())
+    return {"rel_err": rel, "max_abs_err": float((dGt - dGt_p).abs().max()),
+            "n_span": kw["n_span"], "chunk": kw["chunk"], "tile_capacity": rc.tile_capacity,
+            "window_blocks": rc.window_blocks, "rows": int(G_s.shape[0]),
+            "entries": int((tl >= 0).sum()),
+            "ms": cuda_ms(lambda: win.composite_windowed_bwd(*bargs, **kw), 5)}
 
 
 def eval_phase(device, pipe, frames, poses):
@@ -804,7 +847,8 @@ def eval_phase(device, pipe, frames, poses):
                 assert torch.equal(got[2], want[2]), "eval frame: nv disagrees"
         torch.cuda.synchronize()
         err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
-        assert err <= 1e-3, f"{mode} eval frame: {err} against the plain version"
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"{mode} eval frame: {err} from the plain version"
         checks[mode] = err
     emit({"phase": "eval", "every": EVAL_EVERY, "modes": results,
           "frame_check_max_abs_err": checks})

@@ -4,14 +4,7 @@
 // pallas_composite.py`, `_bwd_kernel` + `_prefix_hs`). For every pair (t, k)
 // it writes dGt[t, :, k]: the gradients of the pair's packed row (mx, my, ca,
 // cb, cc, op in rows 0-5, zeros in rows 6-7, the 24 feature rows in 8-31),
-// summed over the tile's 256 pixels. Per pixel, with s_k = sum_c f_kc dAcc_c,
-// w_k = m_k alpha_k T_k and om_k = 1 - alpha_k:
-//   da_k = m_k T_k s_k - (gate_k / om_k) B_k - (m_k / om_k) carry
-// where B_k is the sum of w_j s_j over later pairs j of the same chunk and
-// carry the sum over later chunks plus T_final dT — the TPU kernel's formula
-// (`pallas_composite.py:266-276`, `gate` versus `m` kept as there), chained
-// through alpha = min(0.99, op e^power) with the clip mask raw >= 0.99 and
-// the max(op, 1e-12) guard.
+// summed over the tile's 256 pixels, by the formula of pair_grads.cuh.
 //
 // Bound: arithmetic and the per-pair reduction. Each (pixel, pair) costs two
 // exps (the chunk is recomputed forward, then walked in reverse), ~150 flops,
@@ -29,13 +22,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_grads.cuh"
+
 namespace {
 constexpr int SUB = 32;  // pairs per group (one bit each in a uint32 mask)
-constexpr int CH = 32;
-constexpr int HDR = 8;
-constexpr int CF = CH - HDR;
-constexpr int NR = 6 + CF;  // reduced values per pair
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int CH = sagsb::CH;
+constexpr int CF = sagsb::CF;
+constexpr int NR = sagsb::NR;
 }  // namespace
 
 __global__ void __launch_bounds__(256)
@@ -158,65 +151,23 @@ composite_bwd_kernel(const float* __restrict__ G,
     for (int k = n - 1; k >= 0; --k) {
       const float* r = rows + k * CH;
       const bool gate = (gbits >> k) & 1u;
-      const bool m = (mbits >> k) & 1u;
       float v[NR];
 #pragma unroll
       for (int q = 0; q < NR; ++q) v[q] = 0.f;
       if (gate) {
         const float dx = r[0] - px, dy = r[1] - py;
         const float power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-        const float raw = r[5] * expf(power);
-        const float alpha = fminf(0.99f, raw);
-        const float om = 1.f - alpha;
-        const float Te = texc[k * PIX + tid];
-        float s = 0.f;
-#pragma unroll
-        for (int c = 0; c < CF; ++c) s += r[HDR + c] * dacc[c];
-        const float w = m ? alpha * Te : 0.f;
-        float da = -B / om;
-        if (m) da += Te * s - carry / om;
-        B += w * s;
-        if (raw < 0.99f) {  // ∂alpha/∂power = alpha, ∂alpha/∂op = alpha / op
-          const float dpow = da * alpha;
-          v[0] = dpow * (-(r[2] * dx + r[3] * dy));
-          v[1] = dpow * (-(r[4] * dy + r[3] * dx));
-          v[2] = dpow * (-0.5f * dx * dx);
-          v[3] = dpow * (-dx * dy);
-          v[4] = dpow * (-0.5f * dy * dy);
-          v[5] = da * alpha / fmaxf(r[5], 1e-12f);
-        }
-#pragma unroll
-        for (int c = 0; c < CF; ++c) v[6 + c] = w * dacc[c];
+        sagsb::entry_grads(r, dx, dy, r[5] * expf(power), (mbits >> k) & 1u,
+                           texc[k * PIX + tid], dacc, carry, B, v);
       }
       if ((base + k) % chunk == 0) {  // leaving the chunk backwards
         carry += B;
         B = 0.f;
       }
-      float* dst = red + (k * NW + warp) * NR;
-      if (__any_sync(FULL, gate)) {
-#pragma unroll
-        for (int q = 0; q < NR; ++q) {
-          float x = v[q];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(FULL, x, off);
-          if (lane == 0) dst[q] = x;
-        }
-      } else if (lane < NR) {
-        dst[lane] = 0.f;
-      }
+      sagsb::warp_sums(v, gate, red + (k * NW + warp) * NR, lane);
     }
     __syncthreads();
-
-    // fixed-order sum of the warp partials; coalesced along k
-    for (int i = tid; i < CH * n; i += PIX) {
-      const int row = i / n, k = i - row * n;
-      float x = 0.f;
-      if (row < 6 || row >= HDR) {
-        const int q = row < 6 ? row : 6 + (row - HDR);
-        for (int w = 0; w < NW; ++w) x += red[(k * NW + w) * NR + q];
-      }
-      out[(size_t)row * K + base + k] = x;
-    }
+    sagsb::write_entry_sums(red, out, K, base, n, NW);
   }
 }
 

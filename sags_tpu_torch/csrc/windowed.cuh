@@ -60,12 +60,20 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __uint_as_float(u & 0xffff0000u);
 }
 
+// The longhand EWA exponent -0.5 (ca dx^2 + cc dy^2) - cb dx dy of row r,
+// one rounded operation at a time in PyTorch's order (no fused multiply-add),
+// so the plain version (`_composite_rows_plain`) computes the same bits.
+__device__ __forceinline__ float ewa_power(const float* r, float dx, float dy) {
+  const float q = __fadd_rn(__fmul_rn(__fmul_rn(r[2], dx), dx),
+                            __fmul_rn(__fmul_rn(r[4], dy), dy));
+  return __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(r[3], dx), dy));
+}
+
 // Composite the first `count` entries of a tile's work list, `ids(k)` giving
 // the k-th window-local id. One thread per pixel (px, py) = (bx + u, by + v);
 // the block is the tile (tile x tile pixels). The gates are the TPU kernel's
 // (`pallas_windowed.py:264-326`):
-//   longhand: power = -0.5 (ca dx^2 + cc dy^2) - cb dx dy,
-//             alpha = min(0.99, op e^power);
+//   longhand: power = ewa_power, alpha = min(0.99, op e^power);
 //   quad: the same quadratic expanded around the tile origin into six
 //         monomials of the tile-local (u, v) (coefficients per row, in float32,
 //         one rounded operation at a time), alpha = min(0.99, op
@@ -78,7 +86,9 @@ __device__ __forceinline__ float bf16_round(float x) {
 // Feature sums: PREC_HIGHEST w f in float32; PREC_DEFAULT bf16(w) bf16(f);
 // PREC_HIGH the bf16x2 split wh fh + wh fl + wl fh (lo lo dropped); with
 // BF16OBJ the obj channels take bf16(w) times their packed bf16 values. The
-// products of bf16 values are exact in float32; sums are float32.
+// products of bf16 values are exact in float32; sums are float32, one pair
+// at a time in work-list order, and w f is rounded before it is added, so
+// the plain version's per-pair sum gives the same bits in every tier.
 // Writes acc[pixel * 24 + c] and T[pixel] of this tile.
 template <int EWA, int PREC, bool BF16OBJ, class Ids>
 __device__ __forceinline__ void composite_window(const float* __restrict__ G, int row_stride,
@@ -158,10 +168,7 @@ __device__ __forceinline__ void composite_window(const float* __restrict__ G, in
         alpha = fminf(0.99f, rows[k][5] * expf(fminf(p, 0.f)));
         power = p <= 0.01f ? fminf(p, 0.f) : p;
       } else {
-        const float dx = rows[k][0] - px;
-        const float dy = rows[k][1] - py;
-        power = -0.5f * (rows[k][2] * dx * dx + rows[k][4] * dy * dy) -
-                rows[k][3] * dx * dy;
+        power = ewa_power(rows[k], rows[k][0] - px, rows[k][1] - py);
         alpha = fminf(0.99f, rows[k][5] * expf(power));
       }
       if (!(power <= 0.f && alpha >= alpha_min)) continue;
@@ -173,7 +180,8 @@ __device__ __forceinline__ void composite_window(const float* __restrict__ G, in
       const float w = alpha * T;
       if (PREC == PREC_HIGHEST && !BF16OBJ) {
 #pragma unroll
-        for (int c = 0; c < CF; ++c) acc[c] += w * rows[k][HDR + c];
+        for (int c = 0; c < CF; ++c)
+          acc[c] = __fadd_rn(acc[c], __fmul_rn(w, rows[k][HDR + c]));
       } else {
         const float wh = bf16_round(w);
         const float wl = bf16_round(w - wh);
@@ -189,7 +197,7 @@ __device__ __forceinline__ void composite_window(const float* __restrict__ G, in
             const float fl = bf16_round(f - fh);
             acc[c] += wh * fh + wh * fl + wl * fh;
           } else {
-            acc[c] += w * f;
+            acc[c] = __fadd_rn(acc[c], __fmul_rn(w, f));
           }
         }
       }

@@ -47,14 +47,20 @@ def tile_pixel_coords(num_tiles: int, tiles_x: int, tile: int,
     return px, py
 
 
-def _chunk_quants(Gc, vm, px, py, T_entry, alpha_min, t_min):
-    """Per-(tile, pixel, pair) compositing quantities of one chunk."""
+def ewa_power(Gc, px, py):
+    """Offsets and longhand EWA exponent [NT, PIX, k] of the rows Gc
+    [NT, k, ≥5] at the pixels (px, py) [NT, PIX]."""
     dx = Gc[..., 0][:, None, :] - px[:, :, None]
     dy = Gc[..., 1][:, None, :] - py[:, :, None]
     ca = Gc[..., 2][:, None, :]
     cb = Gc[..., 3][:, None, :]
     cc = Gc[..., 4][:, None, :]
-    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    return dx, dy, -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+
+
+def _chunk_quants(Gc, vm, px, py, T_entry, alpha_min, t_min):
+    """Per-(tile, pixel, pair) compositing quantities of one chunk."""
+    dx, dy, power = ewa_power(Gc, px, py)
     raw = Gc[..., 5][:, None, :] * torch.exp(power)
     alpha = torch.clamp(raw, max=0.99)
     gate = (power <= 0.0) & (alpha >= alpha_min) & vm[:, None, :]

@@ -53,7 +53,7 @@ import torch
 
 from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
 from sags_tpu_torch.ops.binning import cull_c2, tile_qmin
-from sags_tpu_torch.ops.composite import _chunk_quants, pair_grads, tile_pixel_coords
+from sags_tpu_torch.ops.composite import ewa_power, pair_grads, tile_pixel_coords
 
 HDR = 8  # header rows (geometry); feature rows start here
 OBJ0, N_OBJ = HDR + 3, 16  # the obj channels among the feature columns
@@ -126,16 +126,26 @@ def unpack_obj_bf16(G_s: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).reshape(-1, N_OBJ).view(torch.float32)
 
 
-def _feat_sum(w, feats, feat_prec):
-    """Σ_k w[t,p,k]·feats[t,k,c] at the TPU kernel's `_feat_dot` precision."""
-    if feat_prec == "highest":
-        return torch.einsum("tpk,tkc->tpc", w, feats)
-    wh, fh = bf16_round(w), bf16_round(feats)
-    acc = torch.einsum("tpk,tkc->tpc", wh, fh)
-    if feat_prec == "high":
-        acc = acc + torch.einsum("tpk,tkc->tpc", wh, bf16_round(feats - fh))
-        acc = acc + torch.einsum("tpk,tkc->tpc", bf16_round(w - wh), fh)
-    return acc
+def _feat_term(w, f, feat_prec, bf16_obj):
+    """One work-list entry's addend w·f to acc [NT, PIX, 24] at the TPU
+    kernel's `_feat_dot` precision, rounded as the CUDA kernel rounds it:
+    w [NT, PIX], f [NT, 24]. With `bf16_obj` the obj channels (already bf16
+    values) take bf16(w)."""
+    w, f = w[..., None], f[:, None, :]
+    if feat_prec == "highest" and not bf16_obj:
+        return w * f
+    wh = bf16_round(w)
+    if feat_prec == "default":
+        term = wh * bf16_round(f)
+    elif feat_prec == "high":
+        fh = bf16_round(f)
+        term = wh * fh + wh * bf16_round(f - fh) + bf16_round(w - wh) * fh
+    else:
+        term = w * f
+    if bf16_obj:
+        o0, o1 = OBJ0 - HDR, OBJ0 - HDR + N_OBJ
+        term = torch.cat([term[..., :o0], wh * f[..., o0:o1], term[..., o1:]], dim=-1)
+    return term
 
 
 def _quad_power(Gc, tile, bx, by):
@@ -160,8 +170,11 @@ def _composite_rows_plain(G_s, rows, count_max: int, tile, tiles_x, alpha_min,
                           t_min, chunk, tile_offset, ewa_impl="vpu",
                           feat_prec="highest", bf16_obj=False):
     """Front-to-back compositing of the rows `rows` [NT, K] (−1 = empty) in
-    chunks of `chunk`, over the chunks that start below `count_max`.
-    Returns (acc [NT, tile², 24], T [NT, tile²])."""
+    chunks of `chunk`, over the entries below `count_max`. The alpha math is
+    vectorised over a chunk; the transmittance and the feature sums advance
+    one entry at a time, T ← T·(1−α) and acc ← acc + w·f, which are the CUDA
+    kernel's float32 operations in its order: both give the same bits in
+    every precision tier. Returns (acc [NT, tile², 24], T [NT, tile²])."""
     NT, K = rows.shape
     G = G_s[:, :KERNEL_CH]
     if bf16_obj:
@@ -173,34 +186,27 @@ def _composite_rows_plain(G_s, rows, count_max: int, tile, tiles_x, alpha_min,
                       device=G.device)
     zero = torch.zeros((), device=G.device)
     for c0 in range(0, min(K, count_max), chunk):
-        r = rows[:, c0:c0 + chunk]
-        vm = r >= 0
-        Gc = torch.where(vm[..., None], G[torch.clamp(r, min=0)], zero)
+        r = rows[:, c0:min(c0 + chunk, count_max)]  # later entries are all empty
+        Gc = torch.where((r >= 0)[..., None], G[torch.clamp(r, min=0)], zero)
         if ewa_impl == "quad":
             p = _quad_power(Gc, tile, bx, by)
             alpha = torch.clamp(Gc[..., 5][:, None, :] * torch.exp(torch.clamp(p, max=0.0)),
                                 max=0.99)
             power = torch.where(p <= 0.01, torch.clamp(p, max=0.0), p)
-            gate = (power <= 0.0) & (alpha >= alpha_min)
-            a = torch.where(gate, alpha, zero)
-            om = 1.0 - a
-            cum = torch.cumprod(om, dim=-1)
-            T_exc = T[..., None] * torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]],
-                                             dim=-1)
-            m = gate & (T_exc * om >= t_min)
         else:
-            _, _, _, a, _, om, T_exc, m = _chunk_quants(Gc, vm, px, py, T, alpha_min, t_min)
-        w = torch.where(m, a * T_exc, zero)
-        feats = Gc[..., HDR:]
-        if bf16_obj:
-            o0, o1 = OBJ0 - HDR, OBJ0 - HDR + N_OBJ
-            acc = acc + torch.cat([
-                _feat_sum(w, feats[..., :o0], feat_prec),
-                torch.einsum("tpk,tkc->tpc", bf16_round(w), feats[..., o0:o1]),
-                _feat_sum(w, feats[..., o1:], feat_prec)], dim=-1)
-        else:
-            acc = acc + _feat_sum(w, feats, feat_prec)
-        T = T * torch.prod(torch.where(m, om, torch.ones_like(om)), dim=-1)
+            power = ewa_power(Gc, px, py)[2]
+            alpha = torch.clamp(Gc[..., 5][:, None, :] * torch.exp(power), max=0.99)
+        gate = (power <= 0.0) & (alpha >= alpha_min)
+        om = 1.0 - alpha
+        cut = torch.zeros_like(gate[..., 0])  # T·(1−α) < t_min: cut to the chunk's end
+        for k in range(r.shape[1]):
+            test = T * om[..., k]
+            live = gate[..., k] & ~cut
+            ok = live & (test >= t_min)
+            cut = cut | (live & ~ok)
+            w = torch.where(ok, alpha[..., k] * T, zero)
+            acc = acc + _feat_term(w, Gc[:, k, HDR:], feat_prec, bf16_obj)
+            T = torch.where(ok, test, T)
     return acc, T
 
 
@@ -235,10 +241,7 @@ def composite_windowed_bwd_plain(G_s, table_local, counts, bases, dests, nblks, 
     def quants(c0, T_entry):
         r = rows[:, c0:c0 + chunk]
         Gc = torch.where((r >= 0)[..., None], G[torch.clamp(r, min=0)], zero)
-        dx = Gc[..., 0][:, None, :] - px[:, :, None]
-        dy = Gc[..., 1][:, None, :] - py[:, :, None]
-        power = (-0.5 * (Gc[..., 2][:, None, :] * dx * dx + Gc[..., 4][:, None, :] * dy * dy)
-                 - Gc[..., 3][:, None, :] * dx * dy)
+        dx, dy, power = ewa_power(Gc, px, py)
         raw = Gc[..., 5][:, None, :] * torch.exp(power)
         alpha = torch.clamp(raw, max=0.99)
         gate = (power <= 0.0) & (alpha >= alpha_min)  # empty slots read zero rows

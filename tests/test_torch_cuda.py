@@ -172,8 +172,9 @@ def _prepared(device, build_table, seed=0, cfg=WIN_CFG):
 
 def test_windowed_kernels_match_plain(device):
     """`composite_windowed` and `composite_windowed_sorted` against their
-    plain versions on the same prepared inputs: acc and T to 1e-3 absolute
-    (the bar of `chip_smoke.py`), nv exact."""
+    plain versions on the same prepared inputs: acc and T bitwise equal (the
+    plain version takes the kernel's float32 operations in its order), nv
+    exact."""
     kw = dict(alpha_min=WIN_CFG.alpha_min, t_min=WIN_CFG.transmittance_min, chunk=128,
               n_span=4)
     G_s, _, tl, counts, bases, dests, nblks, *_ = _prepared(device, True)
@@ -183,8 +184,7 @@ def test_windowed_kernels_match_plain(device):
     acc_p, T_p = windowed.composite_windowed_plain(G_s, tl, counts, bases, dests, nblks,
                                                    16, TILES_X, **kw)
     assert windowed.WINDOWED.launches == before + 1
-    torch.testing.assert_close(acc, acc_p, atol=1e-3, rtol=0)
-    torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+    assert torch.equal(acc, acc_p) and torch.equal(T, T_p)
 
     G_s, bases, dests, nblks, ss, se, *_ = _prepared(device, False)
     skw = dict(kw, w_blocks=WIN_CFG.window_blocks, k_tile=WIN_CFG.tile_capacity)
@@ -193,8 +193,7 @@ def test_windowed_kernels_match_plain(device):
     acc_p, T_p, nv_p = windowed.composite_windowed_sorted_plain(
         G_s, bases, dests, nblks, ss, se, 16, TILES_X, **skw)
     assert torch.equal(nv, nv_p) and int(nv.sum()) > 0
-    torch.testing.assert_close(acc, acc_p, atol=1e-3, rtol=0)
-    torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+    assert torch.equal(acc, acc_p) and torch.equal(T, T_p)
 
 
 def test_windowed_bwd_kernel_matches_plain(device):
@@ -231,26 +230,22 @@ def test_windowed_bwd_kernel_matches_plain(device):
                                            ("quad", "default", True)])
 def test_windowed_variants_match_plain(device, ewa, prec, bf16):
     """Each forward variant of both windowed compositors against its plain
-    version: acc and T to 1e-3 absolute (the windowed bar), nv exact. Where
-    the weight w = α·T is rounded to bf16 ("default", the bf16 obj
-    channels), a last-bit difference in T can move w across a rounding tie:
-    those channels are held to one bf16 step of every weight, 2^-7 times
-    the channel's largest feature (`chip_smoke.py` holds the same bar)."""
+    version: acc and T bitwise equal, nv exact (the plain version takes the
+    kernel's float32 operations in its order, so a weight rounds to bf16
+    alike in both); and not equal to the float32 longhand render where the
+    option changes it (rgb, or the obj channels under `windowed_bf16`), so
+    a kernel that ignored the option fails."""
     cfg = dataclasses.replace(WIN_CFG, windowed_bf16=bf16)
-    kw = dict(alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min, chunk=128, n_span=4,
-              ewa_impl=ewa, feat_prec=prec)
+    base = dict(alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min, chunk=128, n_span=4)
+    kw = dict(base, ewa_impl=ewa, feat_prec=prec)
+    changed = slice(3, 19) if (bf16 and ewa == "vpu" and prec == "highest") else slice(0, 3)
     G_s, _, tl, counts, bases, dests, nblks, *_ = _prepared(device, True, cfg=cfg)
     args = (G_s, tl, counts, bases, dests, nblks, 16, TILES_X)
-    feat_max = G_s[:, 8:32].abs().amax(dim=0)
-    bar = torch.full_like(feat_max, 1e-3)
-    if prec == "default":
-        bar = torch.maximum(bar, 2.0 ** -7 * feat_max)
-    elif bf16:
-        bar[3:19] = torch.maximum(bar[3:19], 2.0 ** -7 * feat_max[3:19])
     acc, T = windowed.composite_windowed(*args, bf16_obj=bf16, **kw)
     acc_p, T_p = windowed.composite_windowed_plain(*args, bf16_obj=bf16, **kw)
-    assert bool(((acc - acc_p).abs().amax(dim=(0, 1)) <= bar).all())
-    torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+    assert torch.equal(acc, acc_p) and torch.equal(T, T_p)
+    acc_f, _ = windowed.composite_windowed(*args, **base)
+    assert not torch.equal(acc[..., changed], acc_f[..., changed])
     if bf16:
         return  # the in-kernel sort never takes the bf16 rows
     G_s, bases, dests, nblks, ss, se, *_ = _prepared(device, False)
@@ -259,8 +254,10 @@ def test_windowed_variants_match_plain(device, ewa, prec, bf16):
     acc, T, nv = windowed.composite_windowed_sorted(*sargs, **skw)
     acc_p, T_p, nv_p = windowed.composite_windowed_sorted_plain(*sargs, **skw)
     assert torch.equal(nv, nv_p)
-    assert bool(((acc - acc_p).abs().amax(dim=(0, 1)) <= bar).all())
-    torch.testing.assert_close(T, T_p, atol=1e-3, rtol=0)
+    assert torch.equal(acc, acc_p) and torch.equal(T, T_p)
+    acc_f, _, _ = windowed.composite_windowed_sorted(
+        *sargs, **dict(base, w_blocks=WIN_CFG.window_blocks, k_tile=WIN_CFG.tile_capacity))
+    assert not torch.equal(acc[..., changed], acc_f[..., changed])
 
 
 @pytest.mark.parametrize("bf16", [False, True])
