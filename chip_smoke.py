@@ -20,15 +20,18 @@ Phases, each failing the run (non-zero exit, no result line):
        "high" and "default", windowed_bf16) bitwise equal to its plain
        version and, against the float32 longhand render, different and
        within the JAX package's bars, sort_blocks on [1280, 16, 128] random
-       int32 exactly equal to torch.sort, and the kernel-sort compositor
+       int32 (and on blocks of 2, 64, 256 and 8192 keys) exactly equal to
+       torch.sort, and the kernel-sort compositor
        bitwise equal to the host-table one on every tile the 16-block
        window did not cut;
   3. drive `SLAMPipeline.run` (fused front-end, GICP tracking) at the
      pipeline bench's operating point for 32 warm + 16 timed frames and check
      finite, falling losses, the trajectory (ATE < 0.12 m over the first
      0.75 m of path, the bar of `tests/test_pipeline.py`, and within 5% of the
-     JAX package's ATE on the same scans over the whole run) and that its
-     kernels launched;
+     JAX package's ATE on the same scans over the whole run), that its
+     kernels launched, and composite_fused_bwd at the loop's own shapes on
+     the newest keyframe: 2e-4 relative per output row of its plain version,
+     dGt and the scattered dG bitwise equal over two launches;
   4. `SLAMPipeline.evaluate` of that map over every 6th frame at the
      estimated poses, windowed with the host table (the default), windowed
      with the kernel sort, and classic: PSNR / SSIM / LPIPS, coverage, and
@@ -94,6 +97,14 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def row_rel_err(got, want) -> float:
+    """Largest error of a backward's dGt [NT, 32, K] relative to each output
+    row's largest magnitude (rows that are zero throughout left out)."""
+    scale = want.abs().amax(dim=(0, 2))
+    live = scale > 0
+    return float(((got - want).abs().amax(dim=(0, 2))[live] / scale[live]).max())
 
 
 def random_scene(n: int, device, seed: int = 0):
@@ -203,16 +214,15 @@ def kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H,
         dGt = composite.composite_fused_bwd(*bargs, **kw)
         dGt_p = composite.composite_fused_bwd_plain(*bargs, **kw)
         torch.cuda.synchronize()
-        diff = (dGt - dGt_p).abs().amax(dim=(0, 2))
-        scale = dGt_p.abs().amax(dim=(0, 2))
-        live = scale > 0
-        rel = float((diff[live] / scale[live]).max())
+        rel = row_rel_err(dGt, dGt_p)
         assert rel <= 2e-4, f"composite_fused_bwd disagrees: {rel} relative"
         # -- the scatter into dG: bitwise reproducible
         dG1 = composite.scatter_rows(composite.composite_fused_bwd(*bargs, **kw), table, P)
         dG2 = composite.scatter_rows(composite.composite_fused_bwd(*bargs, **kw), table, P)
         torch.cuda.synchronize()
         assert torch.equal(dG1, dG2), "dG is not bitwise reproducible"
+        assert torch.equal(dGt, composite.composite_fused_bwd(*bargs, **kw)), \
+            "dGt is not bitwise reproducible"
         cb = dict(
             max_abs_err=float((dGt - dGt_p).abs().max()), rel_err=rel,
             ms=cuda_ms(lambda: composite.composite_fused_bwd(*bargs, **kw), 10),
@@ -303,9 +313,7 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
     dGt = win.composite_windowed_bwd(*bargs, **kw)
     dGt_p = win.composite_windowed_bwd_plain(*bargs, **kw)
     torch.cuda.synchronize()
-    scale = dGt_p.abs().amax(dim=(0, 2))
-    live = scale > 0
-    rel_b = float(((dGt - dGt_p).abs().amax(dim=(0, 2))[live] / scale[live]).max())
+    rel_b = row_rel_err(dGt, dGt_p)
     err_b = float((dGt - dGt_p).abs().max())
     del dGt_p
     assert rel_b <= 2e-4, f"composite_windowed_bwd disagrees: {rel_b} relative"
@@ -388,8 +396,15 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
         "kernel sort and host table differ on an uncut tile"
     out["kernel_sort_bitwise_tiles"] = n_uncut
 
-    # -- sort_blocks on [1280, 16, 128] random int32: exactly torch.sort
+    # -- sort_blocks: exactly torch.sort from 2 keys a block (sorted stage by
+    # stage) to 8192 (five transposed rounds), then on [1280, 16, 128]
     g = torch.Generator(device=device).manual_seed(7)
+    for shape in ((NT, 1, 2), (NT, 1, 64), (NT, 2, 128), (NT, 16, 128), (64, 64, 128)):
+        for hi in (2 ** 31 - 1, 8):  # the whole int32 range, and heavy ties
+            x = torch.randint(-hi - 1, hi, shape, generator=g, device=device,
+                              dtype=torch.int64).to(torch.int32)
+            assert torch.equal(sort.sort_blocks(x), sort.sort_blocks_plain(x)), \
+                f"sort_blocks disagrees with torch.sort on blocks of {shape[1] * shape[2]}"
     x = torch.randint(-2 ** 31, 2 ** 31 - 1, (NT, 16, 128), generator=g, device=device,
                       dtype=torch.int64).to(torch.int32)
     assert torch.equal(sort.sort_blocks(x), sort.sort_blocks_plain(x)), \
@@ -409,6 +424,7 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
           "nv_exact": True,
           "nv_total": int(nv.sum()), "overflow_window_raw_16_blocks": int(ov_raw),
           "kernel_sort_bitwise_tiles": n_uncut, "tiles": NT, "sort_blocks_exact": True,
+          "sort_blocks_exact_block_sizes": [2, 64, 256, 2048, 8192],
           "composite_windowed_bwd_rel_err": rel_b, "dG_s_bitwise_reproducible": True,
           "variants": variants})
     return out
@@ -554,6 +570,7 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
         state, _ = slam_step.slam_step(state, kf.camera, kf.image, kf.objects, pipe.cfg)
 
     step_ms = cuda_ms(one_step, 10)
+    bwd = loop_fused_bwd_check(device, pipe, kf.camera)
 
     poses = np.concatenate([warm.poses_est, timed.poses_est])
     gt = np.concatenate([warm.poses_gt, timed.poses_gt])
@@ -574,8 +591,11 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
           "tile_capacity_final": pipe.cfg.raster.tile_capacity,
           "n_active": int(state.map.active.sum()), "launches": launches,
           "launches_per_frame": {k: v / n_frames for k, v in launches.items()},
+          "composite_fused_bwd_at_loop": bwd,
           "lm_iterations_per_frame": [list(x) for x in pipe.lm_log]})
     assert np.isfinite(losses).all(), "non-finite loss"
+    assert bwd["rel_err"] <= 2e-4, f"composite_fused_bwd at the loop's shapes: {bwd}"
+    assert bwd["dGt_bitwise"] and bwd["dG_bitwise"], f"composite_fused_bwd not reproducible: {bwd}"
     assert len(losses) == n_frames, len(losses)
     assert last_mean < first_mean, (first_mean, last_mean)
     assert ate_near < ATE_BAR_M, f"ATE {ate_near} m over the first {ATE_BAR_PATH_M} m"
@@ -584,6 +604,46 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
         assert launches[sym] > 0, f"{sym} never launched in the SLAM loop"
     return launches, pipe, frames, poses, {"ms_per_frame": frame_ms,
                                            "ms_per_train_step": step_ms, "ate_m": ate}
+
+
+def loop_fused_bwd_check(device, pipe, camera):
+    """`composite_fused_bwd` against its plain version at the shapes the
+    classic loop trains with (its final tile capacity, R and chunk) on the
+    inputs `rasterize` prepares for `camera`, with seeded cotangents: 2e-4
+    relative per output row, as at the kernel cell; dGt and the scattered dG
+    compared over two launches."""
+    import torch
+
+    from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.ops import composite
+    from sags_tpu_torch.ops import rasterize as rz
+
+    m, rc = pipe.state.map, pipe.cfg.raster
+    tiles_x, tiles_y = -(-camera.width // rc.tile), -(-camera.height // rc.tile)
+    kw = dict(alpha_min=rc.alpha_min, t_min=rc.transmittance_min, chunk=rc.chunk)
+    with torch.no_grad():
+        pre = rz.preprocess(m.xyz, gm.get_opacity(m), gm.get_scaling(m), gm.get_rotation(m),
+                            camera, rc, shs=gm.get_shs(m), sh_degree=pipe.cfg.map.sh_degree,
+                            active_mask=m.active)
+        table, counts, *_ = rz.bin_gaussians(pre, tiles_x, tiles_y, rc)
+        G = rz._pack_gaussians(pre, m.obj_dc).contiguous()
+    acc, T = composite.composite_fused(G, table, counts, rc.tile, tiles_x, **kw)
+    g = torch.Generator(device=device).manual_seed(2)
+    d_acc = torch.randn(acc.shape, generator=g, device=device)
+    d_T = torch.randn(T.shape, generator=g, device=device)
+    bargs = (G, table, counts, d_acc, d_T, T, rc.tile, tiles_x)
+    dGt = composite.composite_fused_bwd(*bargs, **kw)
+    dGt_2 = composite.composite_fused_bwd(*bargs, **kw)
+    dGt_p = composite.composite_fused_bwd_plain(*bargs, **kw)
+    dG = composite.scatter_rows(dGt, table, G.shape[0])
+    dG_2 = composite.scatter_rows(dGt_2, table, G.shape[0])
+    torch.cuda.synchronize()
+    return {"rel_err": row_rel_err(dGt, dGt_p), "max_abs_err": float((dGt - dGt_p).abs().max()),
+            "dGt_bitwise": torch.equal(dGt, dGt_2), "dG_bitwise": torch.equal(dG, dG_2),
+            "chunk": rc.chunk, "tile_capacity": rc.tile_capacity,
+            "max_tiles_per_gaussian": rc.max_tiles_per_gaussian,
+            "pairs": int(counts.sum()), "deepest_tile": int(counts.max()),
+            "ms": cuda_ms(lambda: composite.composite_fused_bwd(*bargs, **kw), 5)}
 
 
 def slam_windowed_phase(device, frames, classic, n_warm=16, n_timed=8):
@@ -723,10 +783,7 @@ def loop_bwd_check(device, pipe, camera):
     dGt = win.composite_windowed_bwd(*bargs, **kw)
     dGt_p = win.composite_windowed_bwd_plain(*bargs, **kw)
     torch.cuda.synchronize()
-    scale = dGt_p.abs().amax(dim=(0, 2))
-    live = scale > 0
-    rel = float(((dGt - dGt_p).abs().amax(dim=(0, 2))[live] / scale[live]).max())
-    return {"rel_err": rel, "max_abs_err": float((dGt - dGt_p).abs().max()),
+    return {"rel_err": row_rel_err(dGt, dGt_p), "max_abs_err": float((dGt - dGt_p).abs().max()),
             "n_span": kw["n_span"], "chunk": kw["chunk"], "tile_capacity": rc.tile_capacity,
             "window_blocks": rc.window_blocks, "rows": int(G_s.shape[0]),
             "entries": int((tl >= 0).sum()),

@@ -114,7 +114,7 @@ __global__ void __launch_bounds__(256) composite_windowed_sorted_kernel(
   __shared__ sagsw::Spans spans;
   __shared__ int span_start[sagsw::MAX_SPAN];
   __shared__ int span_end[sagsw::MAX_SPAN];
-  __shared__ int32_t keys[SORT_MAX];
+  __shared__ __align__(16) int32_t keys[SORT_MAX];  // bitonic.cuh moves 16 bytes a thread
   __shared__ int n_valid;
   const int t = blockIdx.x;
   const int tid = threadIdx.x;

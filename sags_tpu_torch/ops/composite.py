@@ -106,9 +106,10 @@ def composite_fused_plain(G, table, counts, tile, tiles_x, alpha_min=1.0 / 255.0
 
 def composite_fused_bwd_plain(G, table, counts, d_acc, d_T, T_final, tile, tiles_x,
                               alpha_min=1.0 / 255.0, t_min=1e-4, chunk=64,
-                              tile_offset=0):
+                              tile_offset=0, matrix_form=False):
     """Plain PyTorch backward (the Pallas `_bwd_kernel` math, vectorised over
-    tiles). Returns dGt [NT, CH, K]."""
+    tiles). Returns dGt [NT, CH, K]. `matrix_form` sums over a tile's pixels
+    as the CUDA kernel does (`pair_grads_matrix`): for the tests."""
     NT, K = table.shape
     CH = G.shape[1]
     px, py = tile_pixel_coords(NT, tiles_x, tile, tile_offset, G.device)
@@ -132,7 +133,12 @@ def composite_fused_bwd_plain(G, table, counts, d_acc, d_T, T_final, tile, tiles
     carry = T_final * d_T
     for c0, T_entry in reversed(list(zip(chunks, entries))):
         Gc, dx, dy, raw, a, gate, om, T_exc, m = quants(c0, T_entry)
-        hdr, dfeats, tot = pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry)
+        if matrix_form:
+            hdr, dfeats, tot = pair_grads_matrix(Gc, px, py, raw, a, gate, om, T_exc, m,
+                                                 d_acc, carry)
+        else:
+            hdr, dfeats, tot = pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc,
+                                          carry)
         k = Gc.shape[1]
         dGt[:, 0:6, c0:c0 + k] = hdr
         dGt[:, HDR:, c0:c0 + k] = dfeats
@@ -140,10 +146,10 @@ def composite_fused_bwd_plain(G, table, counts, d_acc, d_T, T_final, tile, tiles
     return dGt
 
 
-def pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry):
-    """One chunk's reverse sweep (the Pallas `_bwd_kernel` formula, shared by
-    both compositors' backward): per-pair header gradients [NT, 6, k] (mx,
-    my, ca, cb, cc, op), feature gradients [NT, CF, k], and the chunk's total
+def _pair_factors(Gc, raw, a, gate, om, T_exc, m, d_acc, carry):
+    """One chunk's reverse sweep per (tile, pixel, pair) (the Pallas
+    `_bwd_kernel` formula): the weight w = m·α·T_exc, dpow = ∂L/∂power
+    (zero where the pair is not gated or α is clipped), and the chunk's total
     of w·s per pixel [NT, PIX], which the carry takes on."""
     zero = torch.zeros((), device=Gc.device)
     s = torch.einsum("tpc,tkc->tpk", d_acc, Gc[..., HDR:])
@@ -156,9 +162,15 @@ def pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry):
           - torch.where(gate, inv_om, zero) * B
           - torch.where(m, inv_om, zero) * carry[..., None])
     live = gate & ~(raw >= 0.99)
-    dpow = torch.where(live, da * a, zero)
+    return w, torch.where(live, da * a, zero), tot[..., 0]
+
+
+def pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry):
+    """One chunk's reverse sweep, shared by both compositors' backward:
+    per-pair header gradients [NT, 6, k] (mx, my, ca, cb, cc, op), feature
+    gradients [NT, CF, k], and the chunk's total of w·s per pixel."""
+    w, dpow, tot = _pair_factors(Gc, raw, a, gate, om, T_exc, m, d_acc, carry)
     opac = Gc[..., 5][:, None, :]
-    dop = torch.where(live, da * a / torch.clamp(opac, min=1e-12), zero).sum(1)
     ca, cb, cc = (Gc[..., i][:, None, :] for i in (2, 3, 4))
     hdr = torch.stack([
         (dpow * (-(ca * dx + cb * dy))).sum(1),
@@ -166,9 +178,36 @@ def pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry):
         (dpow * (-0.5 * dx * dx)).sum(1),
         (dpow * (-dx * dy)).sum(1),
         (dpow * (-0.5 * dy * dy)).sum(1),
-        dop,
+        (dpow / torch.clamp(opac, min=1e-12)).sum(1),
     ], dim=1)
-    return hdr, torch.einsum("tpc,tpk->tck", d_acc, w), tot[..., 0]
+    return hdr, torch.einsum("tpc,tpk->tck", d_acc, w), tot
+
+
+def pair_grads_matrix(Gc, px, py, raw, a, gate, om, T_exc, m, d_acc, carry):
+    """`pair_grads` with the sums over a tile's pixels as two float32 matrix
+    products, the form `csrc/pair_grads.cuh` runs on the tensor cores:
+    dfeats = wᵀ·dAcc, and six moments S = dpowᵀ·Φ with Φ = {1, u, v, u², uv,
+    v²}, (u, v) the pixel's offset from the tile's centre. The geometry
+    gradients follow per pair from S and the pair's centre relative to the
+    same point (dx = mxc − u, dy = myc − v)."""
+    w, dpow, tot = _pair_factors(Gc, raw, a, gate, om, T_exc, m, d_acc, carry)
+    cx = 0.5 * (px.amin(dim=1) + px.amax(dim=1))
+    cy = 0.5 * (py.amin(dim=1) + py.amax(dim=1))
+    u, v = px - cx[:, None], py - cy[:, None]
+    phi = torch.stack([torch.ones_like(u), u, v, u * u, u * v, v * v], dim=-1)
+    S0, Su, Sv, Suu, Suv, Svv = torch.einsum("tpk,tpi->itk", dpow, phi)
+    mxc, myc = Gc[..., 0] - cx[:, None], Gc[..., 1] - cy[:, None]
+    ca, cb, cc, opac = (Gc[..., i] for i in (2, 3, 4, 5))
+    sx, sy = mxc * S0 - Su, myc * S0 - Sv
+    hdr = torch.stack([
+        -(ca * sx + cb * sy),
+        -(cc * sy + cb * sx),
+        -0.5 * (mxc * (mxc * S0 - 2.0 * Su) + Suu),
+        -(mxc * sy - myc * Su + Suv),
+        -0.5 * (myc * (myc * S0 - 2.0 * Sv) + Svv),
+        S0 / torch.clamp(opac, min=1e-12),
+    ], dim=1)
+    return hdr, torch.einsum("tpc,tpk->tck", d_acc, w), tot
 
 
 def _check(G, table, counts, tile, *tensors):

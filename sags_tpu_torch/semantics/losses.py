@@ -21,6 +21,31 @@ def object_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     return -torch.mean(picked) / math.log(num_classes)
 
 
+class _GatherRows(torch.autograd.Function):
+    """`src[idx]` over rows, with a backward that is bitwise reproducible:
+    the cotangent rows are stably sorted by index and each index's run is
+    summed in a fixed order (`torch.segment_reduce`, the pattern of
+    `ops.composite.scatter_rows`). The backward of plain indexing adds
+    duplicate indices in parallel, in an order that changes from run to run;
+    the JAX package's scatter-add is deterministic."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = src.shape[0]
+        return src[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        rows = grad.reshape(flat.numel(), -1)[order]
+        lengths = torch.bincount(flat, minlength=ctx.n_rows)
+        out = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0, unsafe=True)
+        return out.reshape((ctx.n_rows,) + grad.shape[idx.dim():]), None
+
+
 def loss_cls_3d(features: torch.Tensor, predictions: torch.Tensor,
                 uniform: torch.Tensor, active: torch.Tensor, k: int = 5,
                 lambda_val: float = 2.0, sample_size: int = 1000) -> torch.Tensor:
@@ -35,7 +60,7 @@ def loss_cls_3d(features: torch.Tensor, predictions: torch.Tensor,
     sample_pred = predictions[sample_idx]
     far = torch.where(active[:, None], features, torch.full_like(features, 1e10))
     _, nbr_idx = knn(sample_feat, far, k=k, chunk=min(1024, sample_size))
-    nbr_pred = predictions[nbr_idx]
+    nbr_pred = _GatherRows.apply(predictions, nbr_idx)  # a row is many samples' neighbour
     kl = sample_pred[:, None, :] * (torch.log(sample_pred[:, None, :] + 1e-10)
                                     - torch.log(nbr_pred + 1e-10))
     loss = torch.mean(torch.sum(kl, dim=-1))

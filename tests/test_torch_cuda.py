@@ -142,10 +142,49 @@ def test_wrappers_check_their_inputs(device):
         composite.composite_fused(G, table, counts, 16, 2)
 
 
-@pytest.mark.parametrize("shape", [(4, 16, 128), (3, 1, 128), (2, 8, 256)])
+def test_composite_bwd_kernel_ragged_empty_and_full_tiles(device):
+    """`composite_fused_bwd` where its groups of 32 pairs end unevenly: a
+    tile with no pair, tiles whose last group is ragged (1, 33 and 45 pairs),
+    and tiles whose count exceeds the capacity (the kernel cuts it at K):
+    2e-4 relative per row of the plain version, exact zeros past every
+    tile's pairs, and bitwise equal over two launches."""
+    K = 64
+    gid_s, starts, G = _binned(device, K, 32)
+    NT = TILES_X * TILES_Y
+    table = binning.fill_table(gid_s, starts, NT, K)
+    counts = (starts[1:] - starts[:-1]).to(torch.int32)  # not cut at K
+    assert int(counts.max()) > K
+    for t, c in ((1, 0), (3, 1), (5, 33), (7, 45)):
+        counts[t] = min(c, int(counts[t]))
+        table[t, int(counts[t]):] = -1
+    kw = dict(chunk=32, tile_offset=0)
+    _, T = composite.composite_fused(G, table, torch.clamp(counts, max=K), 16, TILES_X, **kw)
+    g = torch.Generator(device=device).manual_seed(5)
+    d_acc = torch.randn((NT, 256, 24), generator=g, device=device)
+    d_T = torch.randn((NT, 256), generator=g, device=device)
+    bargs = (G, table, counts, d_acc, d_T, T, 16, TILES_X)
+    before = composite.BWD.launches
+    dgt = composite.composite_fused_bwd(*bargs, **kw)
+    assert composite.BWD.launches == before + 1
+    dgt_p = composite.composite_fused_bwd_plain(*bargs, **kw)
+    scale = dgt_p.abs().amax(dim=(0, 2))
+    live = scale > 0
+    rel = (dgt - dgt_p).abs().amax(dim=(0, 2))[live] / scale[live]
+    assert float(rel.max()) <= 2e-4, rel
+    past = torch.arange(K, device=device)[None, :] >= counts[:, None]
+    assert not bool(dgt.permute(0, 2, 1)[past].any())
+    assert not bool(dgt[1].any())
+    assert torch.equal(dgt, composite.composite_fused_bwd(*bargs, **kw))
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 128), (3, 1, 128), (2, 8, 256), (5, 1, 2),
+                                   (5, 1, 4), (3, 1, 8), (3, 1, 64), (3, 2, 128),
+                                   (2, 4, 128), (2, 8, 128), (2, 32, 128), (2, 64, 128)])
 def test_sort_blocks_kernel_matches_torch_sort(device, shape):
-    """Exactly `torch.sort` of each flattened block: random keys over the
-    whole int32 range, and heavy ties."""
+    """Exactly `torch.sort` of each flattened block, from 2 keys to 8192
+    (fewer keys than a thread holds, less than a warp of threads, one to five
+    transposed rounds): random keys over the whole int32 range, and heavy
+    ties."""
     g = torch.Generator(device="cpu").manual_seed(shape[0])
     for hi in (2 ** 31, 8):
         x = torch.randint(-hi, hi, shape, generator=g, dtype=torch.int64)

@@ -15,10 +15,11 @@ import torch
 from sags_tpu.core.camera import make_camera as jax_make_camera
 from sags_tpu.core.config import RasterizeConfig
 from sags_tpu.ops import pallas_composite as jpc
+from sags_tpu.ops import pallas_sort as jps
 from sags_tpu.ops import rasterize as jrz
 from sags_tpu_torch.core import config as tconf
 from sags_tpu_torch.core.camera import make_camera
-from sags_tpu_torch.ops import binning, composite
+from sags_tpu_torch.ops import binning, composite, sort
 from sags_tpu_torch.ops import rasterize as trz
 
 W, H = 64, 48
@@ -132,6 +133,113 @@ def test_composite_fused_bwd_plain_matches_pallas(chunk):
     rel = np.abs(dgt_t - dgt_j).max(axis=(0, 2))[live] / scale[live]
     assert rel.max() <= 2e-4, rel
     np.testing.assert_array_equal(dgt_t[:, ~live], 0.0)
+
+
+def _far_and_sharp(seed, P=320, K=128):
+    """Packed rows made by hand over the 4x3 tiles: ordinary splats, wide
+    ones centred 100-250 pixels outside the image (their conics small enough
+    to pass the alpha gate there) and sharp, tilted ones (sigma 0.4-1 pixel)
+    inside it; a random table with an empty tile and a full one."""
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 3, P)
+    far, sharp = kind == 1, kind == 2
+    mx = rng.uniform(0, W, P)
+    my = rng.uniform(0, H, P)
+    side = rng.integers(0, 2, P) * 2 - 1
+    mx = np.where(far, np.where(side > 0, W + rng.uniform(100, 250, P),
+                                -rng.uniform(100, 250, P)), mx)
+    my = np.where(far, my + side * rng.uniform(0, 150, P), my)
+    sig = np.where(far, rng.uniform(40, 90, (2, P)),
+                   np.where(sharp, rng.uniform(0.4, 1.0, (2, P)), rng.uniform(2, 10, (2, P))))
+    rho = rng.uniform(-0.8, 0.8, P)
+    det = (sig[0] * sig[1]) ** 2 * (1 - rho ** 2)
+    ca, cc = sig[1] ** 2 / det, sig[0] ** 2 / det
+    cb = -rho * sig[0] * sig[1] / det
+    op = rng.uniform(0.3, 0.99, P)
+    G = np.zeros((P, 32), np.float32)
+    G[:, :6] = np.stack([mx, my, ca, cb, cc, op], -1)
+    G[:, 8:] = rng.normal(size=(P, 24))
+    NT = TILES_X * TILES_Y
+    table = rng.integers(0, P, (NT, K)).astype(np.int32)
+    counts = rng.integers(K // 4, K + 1, NT).astype(np.int32)
+    counts[1], counts[2] = 0, K
+    table[np.arange(K)[None, :] >= counts[:, None]] = -1
+    return torch.as_tensor(G), torch.as_tensor(table), torch.as_tensor(counts), far, sharp
+
+
+def _row_rel(got, want):
+    scale = np.abs(want).max(axis=(0, 2))
+    live = scale > 0
+    return np.abs(got - want).max(axis=(0, 2))[live] / scale[live], live
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_composite_fused_bwd_matrix_form(seed, chunk):
+    """The backward's sums over a tile's pixels as the CUDA kernel takes them
+    (two float32 matrix products, the geometry gradients from six moments
+    about the tile's centre) against the direct sums and against the Pallas
+    backward in interpret mode: ≤ 2e-4 relative per output row, on splats
+    100+ pixels from the tile (where the moment expansion cancels most) and
+    on sharp conics."""
+    G, table, counts, far, sharp = _far_and_sharp(seed)
+    NT, K = table.shape
+    rng = np.random.default_rng(seed + 10)
+    d_acc = rng.normal(size=(NT, 256, 24)).astype(np.float32)
+    d_T = rng.normal(size=(NT, 256)).astype(np.float32)
+    _, T = composite.composite_fused(G, table, counts, 16, TILES_X, chunk=chunk)
+    args = (G, table, counts, torch.as_tensor(d_acc), torch.as_tensor(d_T), T, 16, TILES_X)
+    direct = composite.composite_fused_bwd_plain(*args, chunk=chunk).numpy()
+    matrix = composite.composite_fused_bwd_plain(*args, chunk=chunk, matrix_form=True).numpy()
+    # the far and the sharp splats both carry gradient in this scene
+    ids = table.numpy()
+    geom = np.abs(direct[:, :5]).sum(axis=1)
+    for which in (far, sharp):
+        assert geom[(ids >= 0) & which[np.maximum(ids, 0)]].max() > 0
+    rel, live = _row_rel(matrix, direct)
+    assert live[:6].all() and live[8:].all() and rel.max() <= 2e-4, rel
+    np.testing.assert_array_equal(matrix[:, 6:8], 0.0)
+    np.testing.assert_array_equal(matrix[1], 0.0)  # the empty tile
+    gt = jnp.asarray(G.numpy())[jnp.maximum(jnp.asarray(ids), 0)].transpose(0, 2, 1)
+    dgt_j = np.asarray(jpc.composite_fused_bwd(
+        gt, jnp.asarray(counts.numpy()), jnp.asarray(d_acc), jnp.asarray(d_T),
+        jnp.asarray(T.numpy()), 16, TILES_X, chunk=chunk, interpret=True))
+    rel_j, _ = _row_rel(matrix, dgt_j)
+    assert rel_j.max() <= 2e-4, rel_j
+
+
+SORT_SHAPES = [(3, 1, 2), (3, 1, 4), (3, 1, 8), (2, 1, 16), (2, 1, 64), (2, 1, 128),
+               (2, 2, 128), (2, 4, 128), (2, 8, 128), (2, 16, 128), (1, 32, 128),
+               (1, 64, 128)]
+
+
+@pytest.mark.parametrize("E", [1, 2, 8])
+@pytest.mark.parametrize("shape", SORT_SHAPES, ids=lambda s: f"n{s[1] * s[2]}")
+def test_sort_network_schedule(shape, E):
+    """The stage schedule of `csrc/bitonic.cuh` (in-thread, by shuffle, in
+    transposed rounds through shared memory) run in plain PyTorch with the
+    kernel's index arithmetic: every stage of the network exactly once, in
+    order, each placed by its distance; exactly `torch.sort` and the JAX
+    package's network in interpret mode, on random keys and heavy ties."""
+    n = shape[1] * shape[2]
+    stages = sort.network_schedule(n, E)
+    want = [(k, j) for k in (2 << i for i in range(n.bit_length() - 1))
+            for j in (k >> (s + 1) for s in range(k.bit_length() - 1))]
+    assert [(k, j) for k, j, _, _ in stages] == want
+    for k, j, place, b in stages:
+        if j < E or j >= 32 * E:  # a round also takes the stages below its first
+            assert place == ("thread" if j < E else "round")
+        if place == "round":  # the thread's registers span j: b <= log2(j) < b + log2(E)
+            assert b <= j.bit_length() - 1 < b + max(E.bit_length() - 1, 1)
+        else:
+            assert place == ("thread" if j < E else "shuffle")
+    rng = np.random.default_rng(n + E)
+    for hi in (2 ** 31, 4):
+        x = torch.as_tensor(rng.integers(-hi, hi, size=shape).astype(np.int32))
+        got = sort.sort_blocks_network_plain(x, E)
+        assert torch.equal(got, sort.sort_blocks_plain(x))
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jps.sort_blocks(jnp.asarray(x.numpy()), interpret=True)))
 
 
 def test_scatter_rows_sums_by_id():

@@ -146,6 +146,49 @@ def test_slam_steps_and_add_match_jax(carried):
     assert_map_close(s.map, p.map, ATOL)
 
 
+def test_cls3d_step_gradients_are_bitwise_reproducible():
+    """Two backward passes of a step's loss with the cls3d term give bitwise
+    equal gradients on the CPU, in every parameter group: the neighbour
+    gather sums the cotangents of a row that is several samples' neighbour in
+    a fixed order. At 1000 samples of 3000 points, on four threads, plain
+    indexing's backward does not."""
+    from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.models.classifier import ClassifierParams
+
+    rng = np.random.default_rng(11)
+    _, tcfg = configs()
+    tcfg = tcfg.replace(map=tconf.MapConfig(initial_capacity=4096, initial_scale=0.06),
+                        semantics=tconf.SemanticsConfig(cls3d_sample=1000, num_classes=20))
+    pts, cols, mask, img, obj = scene(rng, 3000)
+    state = t_step.init_state(tcfg, seed=0, device="cpu")
+    state, _ = t_step.add_frame_points(state, torch.as_tensor(pts), torch.as_tensor(cols),
+                                       torch.as_tensor(mask), tcfg)
+    cam = make_camera(torch.eye(3), torch.zeros(3), W, H, 1.2, 0.9)
+    m = state.map
+    u = rng.uniform(size=m.capacity).astype(np.float32)
+
+    def grads():
+        params = gm.Params(*(p.detach().requires_grad_(True) for p in gm.params_of(m)))
+        clf = ClassifierParams(*(p.detach().requires_grad_(True) for p in state.classifier))
+        loss, (_, _, loss_3d, _) = t_step._loss_fn(
+            params, clf, m, cam, torch.as_tensor(img), torch.as_tensor(obj), True,
+            ReplayDraws([u], "cpu"), tcfg)
+        assert float(loss_3d.detach()) > 0
+        return torch.autograd.grad(loss, tuple(params) + tuple(clf), allow_unused=True)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        first = grads()
+        for _ in range(3):
+            for name, a, b in zip(gm.Params._fields + ClassifierParams._fields, first,
+                                  grads()):
+                assert (a is None and b is None) or torch.equal(a, b), name
+    finally:
+        torch.set_num_threads(threads)
+    assert float(first[gm.Params._fields.index("obj_dc")].abs().max()) > 0
+
+
 def test_interop_round_trip(carried):
     _, _, s, *_ = carried
     tree = jax_state_to_numpy(s)
