@@ -11,7 +11,13 @@ Phases, each failing the run (non-zero exit, no result line):
      scene) and time each:
      - classic path, K = 512 and 1024: fill_table exactly, composite_fused to
        1e-3 absolute, composite_fused_bwd to 2e-4 relative per output row,
-       and the scattered dG bitwise equal across two backward runs;
+       and the scattered dG bitwise equal across two backward runs; the
+       forward kernel's strip cull (`composite.strip_live`) drops no strip in
+       which a pixel gates the pair, on that scene and on seeded scenes of
+       large, thin, rotated splats centred off the image (4-8:1, where
+       composite_fused is held to 1e-3 too, and 20-60:1, where the
+       exponent's cancellation lets a few pixels in 10^5 differ); the share
+       of (strip, pair) tests dropped is reported;
      - windowed path, K = 1024, windowed_chunk 512, R = 4, slice store on:
        composite_windowed and composite_windowed_sorted bitwise equal to
        their plain versions (nv exact), composite_windowed_bwd to 2e-4
@@ -29,9 +35,10 @@ Phases, each failing the run (non-zero exit, no result line):
      finite, falling losses, the trajectory (ATE < 0.12 m over the first
      0.75 m of path, the bar of `tests/test_pipeline.py`, and within 5% of the
      JAX package's ATE on the same scans over the whole run), that its
-     kernels launched, and composite_fused_bwd at the loop's own shapes on
-     the newest keyframe: 2e-4 relative per output row of its plain version,
-     dGt and the scattered dG bitwise equal over two launches;
+     kernels launched, and composite_fused and composite_fused_bwd at the
+     loop's own shapes on the newest keyframe: 1e-3 absolute on acc and T,
+     2e-4 relative per output row of dGt against the plain versions, dGt
+     and the scattered dG bitwise equal over two launches;
   4. `SLAMPipeline.evaluate` of that map over every 6th frame at the
      estimated poses, windowed with the host table (the default), windowed
      with the kernel sort, and classic: PSNR / SSIM / LPIPS, coverage, and
@@ -151,6 +158,111 @@ def live_pixel_pairs(G, table, counts, tiles_x, chunk, alpha_min, t_min) -> int:
     return total
 
 
+def strip_check(G, table, counts, tiles_x, alpha_min):
+    """The forward kernel's strip cull (`composite.strip_live`, the kernel's
+    arithmetic and margin) against the gate itself: the (strip, pair) tests
+    made, the share dropped, the share in which some pixel gates the pair
+    (the most a cull could keep away), and the dropped ones among those,
+    which must be none."""
+    import torch
+
+    from sags_tpu_torch.ops import composite
+
+    live = composite.strip_live(G, table, counts, tiles_x, 0, alpha_min)
+    gated = composite.strip_gated(G, table, counts, tiles_x, 0, alpha_min)
+    tests = 8 * int(torch.clamp(counts, max=table.shape[1]).sum())
+    return {"strip_tests": tests, "dropped_share": 1.0 - int(live.sum()) / max(tests, 1),
+            "gated_share": int(gated.sum()) / max(tests, 1),
+            "gated_strips_dropped": int((gated & ~live).sum())}
+
+
+def thin_scene(device, aspect, n=8192, K=1024, width=SLICE_W, height=SLICE_H, seed=3):
+    """Packed rows of large, thin, rotated splats (major sigma 100-400 px,
+    major : minor drawn from `aspect`) centred 20-300 px outside a 640x512
+    image, and the table of the tiles each can gate (the binning's exact
+    cull), in id order."""
+    import torch
+
+    from sags_tpu_torch.ops import binning
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=g)
+    off = u(20.0, 300.0)
+    along = torch.rand(n, generator=g)
+    side = torch.randint(0, 4, (n,), generator=g)
+    mx = torch.where(side == 0, -off, torch.where(side == 1, width + off, along * width))
+    my = torch.where(side == 2, -off, torch.where(side == 3, height + off, along * height))
+    major = u(100.0, 400.0)
+    minor = major / u(*aspect)
+    theta = u(0.0, math.pi)
+    cs, sn = torch.cos(theta), torch.sin(theta)
+    ia, ib = 1.0 / major ** 2, 1.0 / minor ** 2
+    G = torch.zeros((n, 32))
+    G[:, 0], G[:, 1] = mx, my
+    G[:, 2] = cs * cs * ia + sn * sn * ib
+    G[:, 3] = cs * sn * (ia - ib)
+    G[:, 4] = sn * sn * ia + cs * cs * ib
+    G[:, 5] = u(0.05, 0.95)
+    G[:, 8:] = torch.randn((n, 24), generator=g)
+    G = G.to(device)
+    tiles_x, tiles_y = width // 16, height // 16
+    NT = tiles_x * tiles_y
+    t = torch.arange(NT, device=device)
+    tx, ty = (t % tiles_x)[:, None], (t // tiles_x)[:, None]
+    a, b, c, op = (G[None, :, i] for i in (2, 3, 4, 5))
+    hit = binning.tile_qmin(a, b, c, G[None, :, 0], G[None, :, 1], tx, ty, 16.0) \
+        <= binning.cull_c2(op, 1.0 / 255.0)
+    _, gid = hit.nonzero(as_tuple=True)  # by tile, then by id
+    starts = torch.zeros(NT + 1, dtype=torch.int32, device=device)
+    starts[1:] = torch.cumsum(hit.sum(dim=1), 0)
+    table = binning.fill_table(gid.to(torch.int32), starts, NT, K)
+    counts = torch.clamp(starts[1:] - starts[:-1], max=K).to(torch.int32)
+    return G, table, counts, tiles_x
+
+
+# The share of a needle scene's pixels that may differ from the plain version
+# by more than 1e-3: the kernel contracts the exponent's products and sums
+# into fused multiply-adds, the plain version rounds each, and at 20-60:1 the
+# exponent's terms cancel to a thousandth of their size, so a few pixels in
+# 10^5 see a pair on the other side of the alpha gate. A pair dropped from a
+# strip by mistake would move 32 pixels at once.
+NEEDLE_PIXELS_OFF = 2e-4
+
+
+def thin_scene_phase(device, **sizes):
+    """composite_fused and its strip cull where the cull is hardest: long
+    thin splats that cross the image from centres outside it, at 4-8:1 (acc
+    and T to 1e-3 of the plain version) and at 20-60:1 (needles: all but
+    `NEEDLE_PIXELS_OFF` of the pixels to 1e-3). On both, no strip is dropped
+    in which a pixel gates the pair."""
+    import torch
+
+    from sags_tpu_torch.ops import composite
+
+    kw = dict(alpha_min=1.0 / 255.0, t_min=1e-4, chunk=64)
+    out = {}
+    for name, aspect in (("thin", (4.0, 8.0)), ("needle", (20.0, 60.0))):
+        G, table, counts, tiles_x = thin_scene(device, aspect, **sizes)
+        args = (G, table, counts, 16, tiles_x)
+        acc, T = composite.composite_fused(*args, **kw)
+        acc_p, T_p = composite.composite_fused_plain(*args, **kw)
+        torch.cuda.synchronize()
+        d = torch.maximum((acc - acc_p).abs().amax(dim=-1), (T - T_p).abs())
+        off = float((d > 1e-3).sum()) / d.numel()
+        strips = strip_check(G, table, counts, tiles_x, kw["alpha_min"])
+        out[name] = dict(strips, aspect=aspect, pairs=int(counts.sum()),
+                         deepest_tile=int(counts.max()), max_abs_err=float(d.max()),
+                         share_of_pixels_off=off,
+                         ms=cuda_ms(lambda: composite.composite_fused(*args, **kw), 20))
+        emit({"phase": "thin_scene", "name": name, **out[name]})
+        assert int(counts.sum()) > 0 and float(T.min()) < 0.5, f"the {name} scene is empty"
+        assert strips["gated_strips_dropped"] == 0, \
+            f"the strip cull dropped a gated pair on the {name} scene: {strips}"
+        assert off <= (0.0 if name == "thin" else NEEDLE_PIXELS_OFF), \
+            f"composite_fused disagrees on the {name} scene: {out[name]}"
+    return out
+
+
 def kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H,
                  capacities=(512, 1024)):
     """Kernels against their plain versions at the slice's shapes."""
@@ -198,6 +310,9 @@ def kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H,
         err_f = max(float((acc - acc_p).abs().max()), float((T - T_p).abs().max()))
         assert err_f <= 1e-3, f"composite_fused disagrees: {err_f}"
         pairs_px = float(live_pixel_pairs(G, table, counts, tiles_x, 64, **kw_gate))
+        strips = strip_check(G, table, counts, tiles_x, kw_gate["alpha_min"])
+        assert strips["gated_strips_dropped"] == 0, \
+            f"the strip cull dropped a gated pair: {strips}"
         cf = dict(
             max_abs_err=err_f,
             ms=cuda_ms(lambda: composite.composite_fused(*args, **kw), 20),
@@ -231,10 +346,10 @@ def kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H,
             ops=BWD_OPS_PER_PIXEL_PAIR * pairs_px)
         results[K] = {"fill_table": ft, "composite_fused": cf,
                       "composite_fused_bwd": cb, "kept_pairs": kept,
-                      "live_pixel_pairs": pairs_px,
+                      "live_pixel_pairs": pairs_px, "strip_cull": strips,
                       "scatter_ms": cuda_ms(lambda: composite.scatter_rows(dGt, table, P), 10)}
         emit({"phase": "kernels", "tile_capacity": K, "kept_pairs": kept,
-              "live_pixel_pairs": pairs_px,
+              "live_pixel_pairs": pairs_px, "strip_cull": strips,
               "fill_table_exact": True, "composite_fused_max_abs_err": err_f,
               "composite_fused_bwd_rel_err": rel, "dG_bitwise_reproducible": True})
         del pre, G, table, acc, acc_p, dGt, dGt_p
@@ -570,7 +685,7 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
         state, _ = slam_step.slam_step(state, kf.camera, kf.image, kf.objects, pipe.cfg)
 
     step_ms = cuda_ms(one_step, 10)
-    bwd = loop_fused_bwd_check(device, pipe, kf.camera)
+    fwd, bwd = loop_fused_check(device, pipe, kf.camera)
 
     poses = np.concatenate([warm.poses_est, timed.poses_est])
     gt = np.concatenate([warm.poses_gt, timed.poses_gt])
@@ -591,9 +706,10 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
           "tile_capacity_final": pipe.cfg.raster.tile_capacity,
           "n_active": int(state.map.active.sum()), "launches": launches,
           "launches_per_frame": {k: v / n_frames for k, v in launches.items()},
-          "composite_fused_bwd_at_loop": bwd,
+          "composite_fused_at_loop": fwd, "composite_fused_bwd_at_loop": bwd,
           "lm_iterations_per_frame": [list(x) for x in pipe.lm_log]})
     assert np.isfinite(losses).all(), "non-finite loss"
+    assert fwd["max_abs_err"] <= 1e-3, f"composite_fused at the loop's shapes: {fwd}"
     assert bwd["rel_err"] <= 2e-4, f"composite_fused_bwd at the loop's shapes: {bwd}"
     assert bwd["dGt_bitwise"] and bwd["dG_bitwise"], f"composite_fused_bwd not reproducible: {bwd}"
     assert len(losses) == n_frames, len(losses)
@@ -606,12 +722,14 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
                                            "ms_per_train_step": step_ms, "ate_m": ate}
 
 
-def loop_fused_bwd_check(device, pipe, camera):
-    """`composite_fused_bwd` against its plain version at the shapes the
-    classic loop trains with (its final tile capacity, R and chunk) on the
-    inputs `rasterize` prepares for `camera`, with seeded cotangents: 2e-4
-    relative per output row, as at the kernel cell; dGt and the scattered dG
-    compared over two launches."""
+def loop_fused_check(device, pipe, camera):
+    """`composite_fused` and `composite_fused_bwd` against their plain
+    versions at the shapes the classic loop trains with (its final tile
+    capacity, R and chunk) on the inputs `rasterize` prepares for `camera`:
+    the forward's acc and T to 1e-3 absolute; the backward, with seeded
+    cotangents, to 2e-4 relative per output row, as at the kernel cell, dGt
+    and the scattered dG compared over two launches. Returns (forward's,
+    backward's) results."""
     import torch
 
     from sags_tpu_torch.mapping import gaussian_map as gm
@@ -627,7 +745,17 @@ def loop_fused_bwd_check(device, pipe, camera):
                             active_mask=m.active)
         table, counts, *_ = rz.bin_gaussians(pre, tiles_x, tiles_y, rc)
         G = rz._pack_gaussians(pre, m.obj_dc).contiguous()
-    acc, T = composite.composite_fused(G, table, counts, rc.tile, tiles_x, **kw)
+    fargs = (G, table, counts, rc.tile, tiles_x)
+    acc, T = composite.composite_fused(*fargs, **kw)
+    acc_p, T_p = composite.composite_fused_plain(*fargs, **kw)
+    torch.cuda.synchronize()
+    shapes = {"chunk": rc.chunk, "tile_capacity": rc.tile_capacity,
+              "max_tiles_per_gaussian": rc.max_tiles_per_gaussian,
+              "pairs": int(counts.sum()), "deepest_tile": int(counts.max())}
+    fwd = dict(shapes, max_abs_err=max(float((acc - acc_p).abs().max()),
+                                       float((T - T_p).abs().max())),
+               ms=cuda_ms(lambda: composite.composite_fused(*fargs, **kw), 5))
+    del acc_p, T_p
     g = torch.Generator(device=device).manual_seed(2)
     d_acc = torch.randn(acc.shape, generator=g, device=device)
     d_T = torch.randn(T.shape, generator=g, device=device)
@@ -638,12 +766,11 @@ def loop_fused_bwd_check(device, pipe, camera):
     dG = composite.scatter_rows(dGt, table, G.shape[0])
     dG_2 = composite.scatter_rows(dGt_2, table, G.shape[0])
     torch.cuda.synchronize()
-    return {"rel_err": row_rel_err(dGt, dGt_p), "max_abs_err": float((dGt - dGt_p).abs().max()),
-            "dGt_bitwise": torch.equal(dGt, dGt_2), "dG_bitwise": torch.equal(dG, dG_2),
-            "chunk": rc.chunk, "tile_capacity": rc.tile_capacity,
-            "max_tiles_per_gaussian": rc.max_tiles_per_gaussian,
-            "pairs": int(counts.sum()), "deepest_tile": int(counts.max()),
-            "ms": cuda_ms(lambda: composite.composite_fused_bwd(*bargs, **kw), 5)}
+    bwd = dict(shapes, rel_err=row_rel_err(dGt, dGt_p),
+               max_abs_err=float((dGt - dGt_p).abs().max()),
+               dGt_bitwise=torch.equal(dGt, dGt_2), dG_bitwise=torch.equal(dG, dG_2),
+               ms=cuda_ms(lambda: composite.composite_fused_bwd(*bargs, **kw), 5))
+    return fwd, bwd
 
 
 def slam_windowed_phase(device, frames, classic, n_warm=16, n_timed=8):
@@ -936,6 +1063,7 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
 
     kres = kernel_phase(device)
+    thin = thin_scene_phase(device)
     wres = windowed_kernel_phase(device)
     launches, pipe, frames, poses, classic = slam_phase(device)
     K_final = pipe.cfg.raster.tile_capacity
@@ -1001,6 +1129,7 @@ def main() -> int:
           "scatter_ms": {K: kres[K]["scatter_ms"] for K in kres},
           "kept_pairs": {K: kres[K]["kept_pairs"] for K in kres},
           "live_pixel_pairs": {K: kres[K]["live_pixel_pairs"] for K in kres},
+          "strip_cull": dict({K: kres[K]["strip_cull"] for K in kres}, **thin),
           "windowed": {k: v for k, v in wres.items() if not isinstance(v, dict)},
           "ms_per_eval_render": {m: e["ms_per_eval_render"] for m, e in eres.items()}})
     print(smi, flush=True)

@@ -179,34 +179,9 @@ composite_bwd_kernel(const float* __restrict__ G,
       Tr = m ? test : Tr;
     }
 
-    // walk it backwards: the two factors of every (pair, pixel). A pair that
-    // no pixel of the warp gates costs the warp two stores.
-    const unsigned any = __reduce_or_sync(sagsb::FULL, gbits);
-    rem = (base + SUB - 1) % chunk;
-#pragma unroll 4
-    for (int k = SUB - 1; k >= 0; --k) {
-      float w = 0.f, dpow = 0.f;
-      if ((any >> k) & 1u) {
-        const float raw = D[k * LDW + tid];
-        const float alpha = fminf(0.99f, raw);
-        const bool gate = (gbits >> k) & 1u;
-        float wk, Bk = B;
-        const float da = sagsb::entry_da(rows + k * CH, alpha, (mbits >> k) & 1u,
-                                         W[k * LDW + tid], dacc, carry, Bk, wk);
-        if (gate) {
-          B = Bk;
-          w = wk;
-          if (raw < 0.99f) dpow = da * alpha;  // dalpha/dpower = alpha
-        }
-      }
-      if (rem == 0) {  // leaving the chunk backwards
-        carry += B;
-        B = 0.f;
-      }
-      rem = rem == 0 ? chunk - 1 : rem - 1;
-      W[k * LDW + tid] = w;
-      D[k * LDW + tid] = dpow;
-    }
+    // walk it backwards: the two factors of every (pair, pixel)
+    sagsb::walk_group(rows, W, D, gbits, mbits, dacc, chunk, (base + SUB - 1) % chunk, carry,
+                      B, tid);
 
     sagsb::warp_products(W, D, dacc_tile, phis, warp * 32, lane);
     __syncthreads();

@@ -22,7 +22,7 @@
 // Design: one block per tile, 256 threads. The keys live in shared memory
 // (2048 x 4 B); `bitonic_sort_shared` (bitonic.cuh) sorts the window width
 // rounded up to a power of two. The validity test repeats `tile_qmin` and
-// `cull_c2` step by step with round-to-nearest intrinsics (no fused
+// `cull_c2` step by step with round-to-nearest intrinsics (qmin.cuh: no fused
 // multiply-add), in PyTorch's order of operations, so the kernel bins
 // exactly the pairs that the host pair sort bins from the same rows.
 
@@ -30,6 +30,7 @@
 #include <stdint.h>
 
 #include "bitonic.cuh"
+#include "qmin.cuh"
 #include "windowed.cuh"
 
 namespace {
@@ -41,54 +42,19 @@ constexpr int32_t KEY_INVALID = 0x7FFFFFFF;
 constexpr int COL_RMIN_X = 32, COL_RMIN_Y = 33, COL_RECT_W = 34,
               COL_RECT_H = 35, COL_DQ = 36;
 
-// torch.minimum / torch.maximum / torch.clamp(min=) propagate NaN
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-__device__ __forceinline__ float clamp_min(float x, float m) {
-  return x != x ? x : fmaxf(x, m);
-}
-
-// a x^2 + 2 b x y + c y^2, left to right as PyTorch evaluates it
-__device__ __forceinline__ float quad(float a, float b, float c, float x,
-                                      float y) {
-  const float t1 = __fmul_rn(__fmul_rn(a, x), x);
-  const float t2 = __fmul_rn(__fmul_rn(__fmul_rn(2.f, b), x), y);
-  const float t3 = __fmul_rn(__fmul_rn(c, y), y);
-  return __fadd_rn(__fadd_rn(t1, t2), t3);
-}
-
 // binning.tile_qmin(...) <= binning.cull_c2(op, alpha_min)
 __device__ bool alpha_live(const float* row, int tx, int ty, float T,
                            float alpha_min) {
   const float mx = row[0], my = row[1];
-  const float a = row[2], b = row[3], c = row[4], op = row[5];
   const float txT = __fmul_rn((float)tx, T);
   const float tyT = __fmul_rn((float)ty, T);
   const float x0 = __fsub_rn(txT, mx);
   const float x1 = __fsub_rn(__fadd_rn(txT, T - 1.f), mx);
   const float y0 = __fsub_rn(tyT, my);
   const float y1 = __fsub_rn(__fadd_rn(tyT, T - 1.f), my);
-  const bool inside = (x0 <= 0.f) && (0.f <= x1) && (y0 <= 0.f) && (0.f <= y1);
-  const float a_s = clamp_min(a, 1e-12f);
-  const float c_s = clamp_min(c, 1e-12f);
-  const float nb = -b;
-  float q = nan_max(__fdiv_rn(__fmul_rn(nb, x0), c_s), y0);
-  const float qx0 = quad(a, b, c, x0, nan_min(q, y1));
-  q = nan_max(__fdiv_rn(__fmul_rn(nb, x1), c_s), y0);
-  const float qx1 = quad(a, b, c, x1, nan_min(q, y1));
-  q = nan_max(__fdiv_rn(__fmul_rn(nb, y0), a_s), x0);
-  const float qy0 = quad(a, b, c, nan_min(q, x1), y0);
-  q = nan_max(__fdiv_rn(__fmul_rn(nb, y1), a_s), x0);
-  const float qy1 = quad(a, b, c, nan_min(q, x1), y1);
-  float qmin = nan_min(nan_min(qx0, qx1), nan_min(qy0, qy1));
-  if (inside) qmin = 0.f;
-  const float lg = logf(clamp_min(__fdiv_rn(op, alpha_min), 1e-12f));
+  const float qmin = sagsq::box_qmin(row[2], row[3], row[4], x0, x1, y0, y1);
   const float c2 =
-      __fadd_rn(__fmul_rn(clamp_min(__fmul_rn(2.f, lg), 0.f), 1.00001f), 1e-6f);
+      __fadd_rn(__fmul_rn(sagsq::gate_level(row[5], alpha_min), 1.00001f), 1e-6f);
   return qmin <= c2;
 }
 

@@ -1,10 +1,10 @@
-// pair_grads.cuh: the reverse sweep's per-entry gradient and its fixed-order
-// reduction over a tile's pixels, shared by composite_fused_bwd.cu (classic
-// table) and composite_windowed_bwd.cu (windowed work list), which differ
-// in how they find an entry's row and keep the transmittance, and in how they
-// sum over the pixels: the windowed kernel by shuffle trees (`entry_grads`,
-// `warp_sums`, `write_entry_sums`), the classic one as a matrix product on
-// the tensor cores (`warp_products`, `write_group_sums`).
+// pair_grads.cuh: the reverse sweep's per-entry gradient (`entry_da`), the
+// walk of a 32-entry group that leaves two factors per (entry, pixel)
+// (`walk_group`) and their fixed-order reduction over a tile's pixels as a
+// matrix product on the tensor cores (`warp_products`, `write_group_sums`),
+// shared by composite_fused_bwd.cu (classic table) and
+// composite_windowed_bwd.cu (windowed work list), which differ in how they
+// find an entry's row and keep the transmittance.
 //
 // Per pixel, with s_k = sum_c f_kc dAcc_c, w_k = m_k alpha_k T_k and
 // om_k = 1 - alpha_k:
@@ -38,7 +38,6 @@ namespace sagsb {
 constexpr int CH = 32;  // row columns: 8 header + 24 features
 constexpr int HDR = 8;
 constexpr int CF = CH - HDR;
-constexpr int NR = 6 + CF;  // reduced values per entry: mx, my, ca, cb, cc, op, features
 constexpr unsigned FULL = 0xffffffffu;
 
 // One gated entry at one pixel: returns da = dL/dalpha. Row r, alpha, m = it
@@ -62,60 +61,6 @@ __device__ __forceinline__ float entry_da(const float* r, float alpha, bool m, f
   const float da = (m ? Te * s : 0.f) - (m ? B + carry : B) / om;
   B += w * s;
   return da;
-}
-
-// One gated entry's per-pixel gradient values v[NR] (v is zero-filled by the
-// caller): row r, offsets dx, dy, raw = op e^power, m = it composited, Te its
-// exclusive transmittance; B (this chunk's later w s) takes on w s.
-__device__ __forceinline__ void entry_grads(const float* r, float dx, float dy, float raw,
-                                            bool m, float Te, const float* dacc,
-                                            float carry, float& B, float* v) {
-  const float alpha = fminf(0.99f, raw);
-  float w;
-  const float da = entry_da(r, alpha, m, Te, dacc, carry, B, w);
-  if (raw < 0.99f) {  // dalpha/dpower = alpha, dalpha/dop = alpha / op
-    const float dpow = da * alpha;
-    v[0] = dpow * (-(r[2] * dx + r[3] * dy));
-    v[1] = dpow * (-(r[4] * dy + r[3] * dx));
-    v[2] = dpow * (-0.5f * dx * dx);
-    v[3] = dpow * (-dx * dy);
-    v[4] = dpow * (-0.5f * dy * dy);
-    v[5] = da * alpha / fmaxf(r[5], 1e-12f);
-  }
-#pragma unroll
-  for (int c = 0; c < CF; ++c) v[6 + c] = w * dacc[c];
-}
-
-// The warp's sums of v into dst[0 .. NR-1] by a shuffle tree (zeros, without
-// the tree, when no lane of the warp is gated).
-__device__ __forceinline__ void warp_sums(const float* v, bool gate, float* dst, int lane) {
-  if (__any_sync(FULL, gate)) {
-#pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      float x = v[q];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(FULL, x, off);
-      if (lane == 0) dst[q] = x;
-    }
-  } else if (lane < NR) {
-    dst[lane] = 0.f;
-  }
-}
-
-// Entries base .. base + n - 1 of the tile: the fixed-order sum over the nw
-// warps' partials red[(k * nw + warp) * NR + q], written to out[row * K + base
-// + k] (rows 6-7 zero), coalesced along k. No atomics: bitwise reproducible.
-__device__ __forceinline__ void write_entry_sums(const float* red, float* out, int K,
-                                                 int base, int n, int nw) {
-  for (int i = threadIdx.x; i < CH * n; i += blockDim.x) {
-    const int row = i / n, k = i - row * n;
-    float x = 0.f;
-    if (row < 6 || row >= HDR) {
-      const int q = row < 6 ? row : 6 + (row - HDR);
-      for (int w = 0; w < nw; ++w) x += red[(k * nw + w) * NR + q];
-    }
-    out[(size_t)row * K + base + k] = x;
-  }
 }
 
 // ---- the sums over a tile's pixels as a matrix product ----
@@ -175,6 +120,45 @@ __device__ __forceinline__ PhiFrags phi_frags(int p0, int lane) {
     for (int h = 0; h < 2; ++h)
       f.b[ks][h] = __float_as_uint(phi(p0 + ks * 8 + (lane & 3) + 4 * h, lane >> 2));
   return f;
+}
+
+// The reverse walk of one group at pixel `tid`. On entry W[k][tid] holds
+// entry k's exclusive transmittance and D[k][tid] its raw = op e^power; gbits
+// and mbits say which entries the pixel gates and composites. On exit they
+// hold the two factors of the sums over pixels: w = m alpha T_exc, and dpow =
+// da alpha (zero where the entry is not gated or alpha is clipped). `rem` is
+// the last entry's index modulo `chunk`; leaving a chunk backwards moves B
+// into carry. All SUB rows without a data-dependent branch but one: an entry
+// that no pixel of the warp gates costs the warp two stores.
+__device__ __forceinline__ void walk_group(const float* rows, float* W, float* D,
+                                           unsigned gbits, unsigned mbits, const float* dacc,
+                                           int chunk, int rem, float& carry, float& B,
+                                           int tid) {
+  const unsigned any = __reduce_or_sync(FULL, gbits);
+#pragma unroll 4
+  for (int k = SUB - 1; k >= 0; --k) {
+    float w = 0.f, dpow = 0.f;
+    if ((any >> k) & 1u) {
+      const float raw = D[k * LDW + tid];
+      const float alpha = fminf(0.99f, raw);
+      const bool gate = (gbits >> k) & 1u;
+      float wk, Bk = B;
+      const float da =
+          entry_da(rows + k * CH, alpha, (mbits >> k) & 1u, W[k * LDW + tid], dacc, carry, Bk, wk);
+      if (gate) {
+        B = Bk;
+        w = wk;
+        if (raw < 0.99f) dpow = da * alpha;  // dalpha/dpower = alpha
+      }
+    }
+    if (rem == 0) {  // leaving the chunk backwards
+      carry += B;
+      B = 0.f;
+    }
+    rem = rem == 0 ? chunk - 1 : rem - 1;
+    W[k * LDW + tid] = w;
+    D[k * LDW + tid] = dpow;
+  }
 }
 
 // One warp's share of a group's sums, over its 32 pixels p0 .. p0 + 31:

@@ -21,16 +21,12 @@ KERNEL = CudaKernel("fill_table.cu", "sags_fill_table",
                     [_P, _I, _P, _I, _I, _P, _P])
 
 
-def tile_qmin(a, b, c_, mx, my, tx, ty, T):
-    """Exact minimum of the conic quadratic over a tile's pixel box.
+def box_qmin(a, b, c_, x0, x1, y0, y1):
+    """Exact minimum of the conic quadratic a·x² + 2b·x·y + c·y² over the box
+    [x0, x1] × [y0, y1] of offsets from the conic's centre.
 
     Every step is one rounded float32 operation in a fixed order, which
-    `csrc/composite_windowed_sorted.cu` repeats with `__f*_rn` intrinsics:
-    the in-kernel depth sort must bin exactly the pairs the host sort bins."""
-    x0 = tx * T - mx
-    x1 = tx * T + (T - 1.0) - mx
-    y0 = ty * T - my
-    y1 = ty * T + (T - 1.0) - my
+    `csrc/qmin.cuh` repeats with `__f*_rn` intrinsics."""
     inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
     a_s = torch.clamp(a, min=1e-12)
     c_s = torch.clamp(c_, min=1e-12)
@@ -48,14 +44,29 @@ def tile_qmin(a, b, c_, mx, my, tx, ty, T):
     return torch.where(inside, torch.zeros_like(qmin), qmin)
 
 
-def cull_c2(opacities: torch.Tensor, alpha_min: float) -> torch.Tensor:
-    """Alpha-gate level in conic-q units: q > c² ⟺ alpha < α_min. The
-    divisor is a tensor: PyTorch divides a CUDA tensor by a Python scalar as
-    a product with its reciprocal, one rounding away from the quotient."""
+def tile_qmin(a, b, c_, mx, my, tx, ty, T):
+    """Exact minimum of the conic quadratic over a tile's pixel box, with
+    `box_qmin`'s fixed order of float32 operations: the in-kernel depth sort
+    (`csrc/composite_windowed_sorted.cu`) must bin exactly the pairs the
+    host sort bins."""
+    return box_qmin(a, b, c_, tx * T - mx, tx * T + (T - 1.0) - mx,
+                    ty * T - my, ty * T + (T - 1.0) - my)
+
+
+def gate_level(opacities: torch.Tensor, alpha_min: float) -> torch.Tensor:
+    """The alpha gate's level in conic-q units, before any margin:
+    max(2·ln(op / α_min), 0); q above it means alpha < α_min. The divisor is
+    a tensor: PyTorch divides a CUDA tensor by a Python scalar as a product
+    with its reciprocal, one rounding away from the quotient."""
     op = opacities.detach()
     am = torch.full((), alpha_min, dtype=op.dtype, device=op.device)
-    return (torch.clamp(2.0 * torch.log(torch.clamp(op / am, min=1e-12)), min=0.0)
-            * (1.0 + 1e-5) + 1e-6)
+    return torch.clamp(2.0 * torch.log(torch.clamp(op / am, min=1e-12)), min=0.0)
+
+
+def cull_c2(opacities: torch.Tensor, alpha_min: float) -> torch.Tensor:
+    """Alpha-gate level in conic-q units, with the binning's margin:
+    q > c² ⟺ alpha < α_min."""
+    return gate_level(opacities, alpha_min) * (1.0 + 1e-5) + 1e-6
 
 
 def fill_table_plain(gid_sorted: torch.Tensor, starts: torch.Tensor,

@@ -1,6 +1,7 @@
 """Fused per-tile alpha compositing, forward and backward: CUDA kernels
 `csrc/composite_fused.cu` / `csrc/composite_fused_bwd.cu` and their plain
-PyTorch versions, plus the deterministic scatter of per-pair gradients.
+PyTorch versions (the forward kernel's strip cull among them), plus the
+deterministic scatter of per-pair gradients.
 
 Port of `sags_tpu/ops/pallas_composite.py` (`composite_fused`,
 `composite_fused_bwd`). Both take the packed rows `G` [P, 32] (header mx, my,
@@ -19,6 +20,7 @@ import ctypes
 
 import torch
 
+from sags_tpu_torch.ops import binning
 from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
 
 HDR = 8  # header rows (geometry); feature rows start here
@@ -33,6 +35,10 @@ BWD = CudaKernel("composite_fused_bwd.cu", "sags_composite_fused_bwd",
 _KERNEL_CH = 32  # the kernels' row width: 16 obj channels (the SLAM feature set)
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can use
 _PAD_SEGMENT = 64  # rows per padding segment of the dG scatter
+STRIP_PIXELS = 32  # a warp of `csrc/composite_fused.cu`: 16 x 2 pixels of a tile
+# the strip cull's margin on the gate level, as in `csrc/composite_fused.cu`
+CULL_REL = 1e-5
+CULL_ABS = 1e-4
 
 
 def tile_pixel_coords(num_tiles: int, tiles_x: int, tile: int,
@@ -102,6 +108,60 @@ def composite_fused_plain(G, table, counts, tile, tiles_x, alpha_min=1.0 / 255.0
         acc = acc + torch.einsum("tpk,tkc->tpc", w, Gc[..., HDR:])
         T = T * torch.prod(torch.where(m, om, torch.ones_like(om)), dim=-1)
     return acc, T
+
+
+def strip_live(G, table, counts, tiles_x, tile_offset=0, alpha_min=1.0 / 255.0, tile=16):
+    """The forward kernel's per-warp strip cull in plain PyTorch: bool
+    [NT, strips, K], true where the warp of strip s (pixel rows 2s and 2s+1
+    of a 16×16 tile) walks pair k of tile t. A pair is dropped only when the
+    least value of its conic quadratic over the strip's pixel centres
+    exceeds the alpha gate's level by a margin that covers the float32
+    rounding of the kernel's exponent (relative to the magnitude of the
+    quadratic's terms over the strip) and of exp and log (absolute), so no
+    pixel of a dropped strip can gate the pair; a conic that is not convex
+    along the strip's edges, and a NaN, keep it. Takes the kernel's float32
+    operations in its order (`binning.box_qmin`, `binning.gate_level`)."""
+    NT, K = table.shape
+    dev = G.device
+    below = torch.arange(K, device=dev)[None, :] < counts[:, None]
+    hdr = torch.where((below & (table >= 0))[..., None],
+                      G[torch.clamp(table, min=0).long(), :6],
+                      torch.zeros((), device=dev))  # empty slots read zero rows
+    rows_per = STRIP_PIXELS // tile
+    ids = torch.arange(NT, device=dev) + int(tile_offset)
+    bx = ((ids % tiles_x) * tile).to(torch.float32)[:, None, None]
+    sy = ((ids // tiles_x) * tile)[:, None] + rows_per * torch.arange(tile // rows_per,
+                                                                      device=dev)
+    sy = sy.to(torch.float32)[:, :, None]
+    mx, my, a, b, c, op = (hdr[..., i][:, None, :] for i in range(6))
+    x0, x1 = bx - mx, (bx + (tile - 1.0)) - mx
+    y0, y1 = sy - my, (sy + (rows_per - 1.0)) - my
+    qmin = binning.box_qmin(a, b, c, x0, x1, y0, y1)
+    X = torch.maximum(x0.abs(), x1.abs())
+    Y = torch.maximum(y0.abs(), y1.abs())
+    mag = a.abs() * X * X + 2.0 * b.abs() * X * Y + c.abs() * Y * Y
+    level = binning.gate_level(op, alpha_min)
+    bound = level + (CULL_REL * (mag + level) + CULL_ABS)
+    drop = (a > 0.0) & (c > 0.0) & (qmin > bound)
+    return ~drop & below[:, None, :]
+
+
+def strip_gated(G, table, counts, tiles_x, tile_offset=0, alpha_min=1.0 / 255.0, tile=16,
+                chunk=64):
+    """What `strip_live` must never drop, from the gate itself: bool
+    [NT, strips, K], true where some pixel of strip s of tile t passes the
+    alpha gate of pair k (`_chunk_quants`, `chunk` pairs at a time)."""
+    NT, K = table.shape
+    px, py = tile_pixel_coords(NT, tiles_x, tile, tile_offset, G.device)
+    rank = torch.arange(K, device=G.device)
+    out = []
+    for c0 in range(0, K, chunk):
+        ids = table[:, c0:c0 + chunk]
+        vm = (rank[None, c0:c0 + chunk] < counts[:, None]) & (ids >= 0)
+        gate = _chunk_quants(G[torch.clamp(ids, min=0).long()], vm, px, py,
+                             torch.ones_like(px), alpha_min, 0.0)[4]
+        out.append(gate.reshape(NT, tile * tile // STRIP_PIXELS, STRIP_PIXELS, -1).any(dim=2))
+    return torch.cat(out, dim=-1)
 
 
 def composite_fused_bwd_plain(G, table, counts, d_acc, d_T, T_final, tile, tiles_x,

@@ -53,7 +53,8 @@ import torch
 
 from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
 from sags_tpu_torch.ops.binning import cull_c2, tile_qmin
-from sags_tpu_torch.ops.composite import ewa_power, pair_grads, tile_pixel_coords
+from sags_tpu_torch.ops.composite import (ewa_power, pair_grads, pair_grads_matrix,
+                                          tile_pixel_coords)
 
 HDR = 8  # header rows (geometry); feature rows start here
 OBJ0, N_OBJ = HDR + 3, 16  # the obj channels among the feature columns
@@ -223,12 +224,15 @@ def composite_windowed_plain(G_s, table_local, counts, bases, dests, nblks, tile
 
 def composite_windowed_bwd_plain(G_s, table_local, counts, bases, dests, nblks, d_acc,
                                  d_T, T_final, tile, tiles_x, alpha_min=1.0 / 255.0,
-                                 t_min=1e-4, chunk=512, n_span=4, tile_offset=0):
+                                 t_min=1e-4, chunk=512, n_span=4, tile_offset=0,
+                                 matrix_form=False):
     """Plain PyTorch version of `composite_windowed_bwd` (the Pallas
     `_bwd_kernel` math, vectorised over tiles): transmittance in log space
     inside a chunk (T_exc = T_entry·exp(exclusive Σ log1p(−α)), the next
     chunk entered at T_entry·exp(Σ_m log1p(−α))), the reverse sweep of
-    `composite.pair_grads`. Returns dGt [NT, 32, K] in table order."""
+    `composite.pair_grads`. Returns dGt [NT, 32, K] in table order.
+    `matrix_form` sums over a tile's pixels as the CUDA kernel does
+    (`composite.pair_grads_matrix`): for the tests."""
     rows = window_rows(table_local, bases, dests, nblks, n_span)
     NT, K = rows.shape
     G = G_s[:, :KERNEL_CH]
@@ -262,7 +266,12 @@ def composite_windowed_bwd_plain(G_s, table_local, counts, bases, dests, nblks, 
     carry = T_final * d_T
     for c0, T_entry in reversed(list(zip(chunks, entries))):
         Gc, dx, dy, raw, a, gate, om, _, T_exc, m = quants(c0, T_entry)
-        hdr, dfeats, tot = pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc, carry)
+        if matrix_form:
+            hdr, dfeats, tot = pair_grads_matrix(Gc, px, py, raw, a, gate, om, T_exc, m,
+                                                 d_acc, carry)
+        else:
+            hdr, dfeats, tot = pair_grads(Gc, dx, dy, raw, a, gate, om, T_exc, m, d_acc,
+                                          carry)
         k = Gc.shape[1]
         dGt[:, 0:6, c0:c0 + k] = hdr
         dGt[:, HDR:, c0:c0 + k] = dfeats
@@ -342,8 +351,8 @@ def composite_windowed_bwd(G_s, table_local, counts, bases, dests, nblks, d_acc,
     for x in (d_acc, d_T, T_final):
         if x.dtype != torch.float32 or x.device != G_s.device:
             raise TypeError("d_acc, d_T and T_final must be float32 on G_s's device")
-    smem = BWD.function("sags_composite_windowed_bwd_smem", [_I, _I, _I],
-                        ctypes.c_size_t)(K, PIX, int(chunk))
+    smem = BWD.function("sags_composite_windowed_bwd_smem", [_I, _I],
+                        ctypes.c_size_t)(K, int(chunk))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"tile_capacity {K} needs {smem} B of shared memory")
     G_s, table_local = G_s.contiguous(), table_local.contiguous()

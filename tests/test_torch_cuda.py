@@ -177,6 +177,43 @@ def test_composite_bwd_kernel_ragged_empty_and_full_tiles(device):
     assert torch.equal(dgt, composite.composite_fused_bwd(*bargs, **kw))
 
 
+@pytest.mark.parametrize("toff", [0, 3])
+@pytest.mark.parametrize("chunk", [32, 64, 48])
+def test_composite_fwd_kernel_counts_chunks_and_offset(device, chunk, toff):
+    """`composite_fused` where its groups of 32 pairs and its strip cull meet
+    the table's edges: tiles with 0, 1 and 33 pairs and a full one, an empty
+    slot below a tile's count, chunks of 32, 64 and 48 pairs (the last no
+    multiple of the group) and a tile offset: 1e-5 absolute on acc and T of
+    the plain version, bitwise equal over two launches, and no gated
+    (pixel, pair) in a strip that `strip_live` drops."""
+    K = 192
+    gid_s, starts, G = _binned(device, K, chunk)
+    table = binning.fill_table(gid_s, starts, TILES_X * TILES_Y, K)[toff:].contiguous()
+    counts = torch.clamp(starts[1:] - starts[:-1], max=K).to(torch.int32)[toff:].contiguous()
+    for t, c in ((1, 0), (2, 1), (4, 33)):
+        counts[t] = min(c, int(counts[t]))
+        table[t, int(counts[t]):] = -1
+    full = table[0, :int(counts[0])]
+    assert full.numel() > 0
+    table[0] = full.repeat(-(-K // full.numel()))[:K]  # a full tile: its pairs repeated
+    counts[0] = K
+    table[3, 2] = -1
+    kw = dict(chunk=chunk, tile_offset=toff)
+    before = composite.FWD.launches
+    acc, T = composite.composite_fused(G, table, counts, 16, TILES_X, **kw)
+    assert composite.FWD.launches == before + 1
+    acc_p, T_p = composite.composite_fused_plain(G, table, counts, 16, TILES_X, **kw)
+    torch.testing.assert_close(acc, acc_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(T, T_p, atol=1e-5, rtol=0)
+    assert not bool(acc[1].any()) and bool((T[1] == 1).all())
+    acc_2, T_2 = composite.composite_fused(G, table, counts, 16, TILES_X, **kw)
+    assert torch.equal(acc, acc_2) and torch.equal(T, T_2)
+    live = composite.strip_live(G, table, counts, TILES_X, toff)
+    gated = composite.strip_gated(G, table, counts, TILES_X, toff)
+    assert not bool((gated & ~live).any())
+    assert not bool(live.all())
+
+
 @pytest.mark.parametrize("shape", [(4, 16, 128), (3, 1, 128), (2, 8, 256), (5, 1, 2),
                                    (5, 1, 4), (3, 1, 8), (3, 1, 64), (3, 2, 128),
                                    (2, 4, 128), (2, 8, 128), (2, 32, 128), (2, 64, 128)])
@@ -260,6 +297,47 @@ def test_windowed_bwd_kernel_matches_plain(device):
     P_all = G_s.shape[0]
     dG = composite.scatter_rows(windowed.composite_windowed_bwd(*bargs, **kw), table, P_all)
     assert torch.equal(dG, composite.scatter_rows(dgt, table, P_all))
+
+
+@pytest.mark.parametrize("chunk", [32, 512])
+def test_windowed_bwd_kernel_ragged_empty_and_full_tiles(device, chunk):
+    """`composite_windowed_bwd` where its groups of 32 entries end unevenly:
+    a tile with no entry, tiles whose last group is ragged (1, 33 and 45
+    entries) and a full one, with a chunk of one group and a chunk longer
+    than the list: 2e-4 relative per row of the plain version, exact zeros
+    past every tile's entries, and bitwise equal over two launches."""
+    kw = dict(alpha_min=WIN_CFG.alpha_min, t_min=WIN_CFG.transmittance_min, chunk=chunk,
+              n_span=4)
+    G_s, _, tl, counts, bases, dests, nblks, *_ = _prepared(device, True)
+    NT = TILES_X * TILES_Y
+    K = tl.numel() // NT
+    tl, counts = tl.reshape(NT, K).clone(), counts.clone()
+    full = tl[0, :int(counts[0])]
+    assert full.numel() > 0
+    tl[0] = full.repeat(-(-K // full.numel()))[:K]  # a full tile: its entries repeated
+    counts[0] = K
+    for t, c in ((1, 0), (3, 1), (5, 33), (7, 45)):
+        counts[t] = min(c, int(counts[t]))
+        tl[t, int(counts[t]):] = -1
+    tl = tl.reshape(NT, K // 128, 128)
+    acc, T = windowed.composite_windowed(G_s, tl, counts, bases, dests, nblks, 16,
+                                         TILES_X, **kw)
+    g = torch.Generator(device=device).manual_seed(5)
+    d_acc = torch.randn(acc.shape, generator=g, device=device)
+    d_T = torch.randn(T.shape, generator=g, device=device)
+    bargs = (G_s, tl, counts, bases, dests, nblks, d_acc, d_T, T, 16, TILES_X)
+    before = windowed.BWD.launches
+    dgt = windowed.composite_windowed_bwd(*bargs, **kw)
+    assert windowed.BWD.launches == before + 1
+    dgt_p = windowed.composite_windowed_bwd_plain(*bargs, **kw)
+    scale = dgt_p.abs().amax(dim=(0, 2))
+    live = scale > 0
+    rel = (dgt - dgt_p).abs().amax(dim=(0, 2))[live] / scale[live]
+    assert float(rel.max()) <= 2e-4, rel
+    past = torch.arange(K, device=device)[None, :] >= counts[:, None]
+    assert not bool(dgt.permute(0, 2, 1)[past].any())
+    assert not bool(dgt[1].any())
+    assert torch.equal(dgt, windowed.composite_windowed_bwd(*bargs, **kw))
 
 
 @pytest.mark.parametrize("ewa,prec,bf16", [("quad", "highest", False),
@@ -358,7 +436,7 @@ def test_header_edit_changes_the_library_hash(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC, src)
     monkeypatch.setattr(_build, "CSRC", str(src))
     name = "composite_windowed_sorted.cu"
-    assert set(_build.source_files(name)) == {name, "bitonic.cuh", "windowed.cuh"}
+    assert set(_build.source_files(name)) == {name, "bitonic.cuh", "qmin.cuh", "windowed.cuh"}
     before = {s: _build._lib_path(s) for s in ("sort_blocks.cu", name, "fill_table.cu")}
     with open(os.path.join(src, "bitonic.cuh"), "a") as f:
         f.write("\n// edited\n")

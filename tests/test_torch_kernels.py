@@ -208,6 +208,136 @@ def test_composite_fused_bwd_matrix_form(seed, chunk):
     assert rel_j.max() <= 2e-4, rel_j
 
 
+def _conic_rows(rng, mx, my, s_major, s_minor, theta, op):
+    """Packed rows [P, 32] of splats with the given centres, axes (pixels),
+    major-axis angles and opacities; random features."""
+    cs, sn = np.cos(theta), np.sin(theta)
+    ia, ib = 1.0 / s_major ** 2, 1.0 / s_minor ** 2
+    G = np.zeros((len(mx), 32), np.float32)
+    G[:, :6] = np.stack([mx, my, cs * cs * ia + sn * sn * ib, cs * sn * (ia - ib),
+                         sn * sn * ia + cs * cs * ib, op], -1)
+    G[:, 8:] = rng.normal(size=(len(mx), 24))
+    return G
+
+
+ALPHA_MIN = np.float32(1.0 / 255.0)
+STRIP_CASES = ["mixed", "far", "sharp", "alpha_edge", "small"] + [f"thin_{i}" for i in range(8)]
+
+
+def _strip_scene(case, P=320, K=128):
+    """Packed rows and a random table over the 4x3 tiles for one family of
+    splats that a strip cull could get wrong."""
+    rng = np.random.default_rng(STRIP_CASES.index(case))
+    u = rng.uniform
+    if case == "mixed":
+        return _far_and_sharp(3, P, K)[:3]
+    if case == "far":  # wide, tilted, centred 100-250 pixels outside the image
+        side = rng.integers(0, 2, P) * 2 - 1
+        mx = np.where(side > 0, W + u(100, 250, P), -u(100, 250, P))
+        G = _conic_rows(rng, mx, u(-150, H + 150, P), u(60, 140, P), u(30, 60, P),
+                        u(0, np.pi, P), u(0.3, 0.99, P))
+    elif case == "sharp":  # sigma 0.4 pixels, on and between pixel centres
+        mx, my = u(0, W, P), u(0, H, P)
+        mx[::3], my[::3] = np.round(mx[::3]), np.round(my[::3])
+        G = _conic_rows(rng, mx, my, np.full(P, 0.4), np.full(P, 0.4), u(0, np.pi, P),
+                        u(0.05, 0.99, P))
+    elif case == "alpha_edge":  # opacity an ulp below, at and an ulp above alpha_min:
+        # such a pair gates only where its exponent is exactly zero
+        op = np.array([np.nextafter(ALPHA_MIN, np.float32(0)), ALPHA_MIN,
+                       np.nextafter(ALPHA_MIN, np.float32(1))], np.float32)[rng.integers(0, 3, P)]
+        G = _conic_rows(rng, np.round(u(0, W, P)), np.round(u(0, H, P)), u(1, 5, P),
+                        u(0.5, 2, P), u(0, np.pi, P), op)
+    elif case == "small":
+        G = _conic_rows(rng, u(0, W, P), u(0, H, P), u(0.8, 2.0, P), u(0.5, 0.8, P),
+                        u(0, np.pi, P), u(0.3, 0.99, P))
+    else:  # aspect 50:1 at one of eight angles, centres in and around the image
+        minor = u(0.5, 2.0, P)
+        theta = int(case[5:]) * np.pi / 8 + u(-0.02, 0.02, P)
+        G = _conic_rows(rng, u(-50, W + 50, P), u(-50, H + 50, P), 50 * minor, minor, theta,
+                        u(0.05, 0.99, P))
+    NT = TILES_X * TILES_Y
+    table = rng.integers(0, P, (NT, K)).astype(np.int32)
+    counts = rng.integers(K // 2, K + 1, NT).astype(np.int32)
+    counts[1], counts[2] = 0, K
+    table[np.arange(K)[None, :] >= counts[:, None]] = -1
+    table[3, 5] = -1  # an empty slot below a tile's count
+    return torch.as_tensor(G), torch.as_tensor(table), torch.as_tensor(counts)
+
+
+def _strips(G, table, counts, toff=0):
+    """(strip_live [NT, 8, K], the strips in which some pixel gates the pair)."""
+    return (composite.strip_live(G, table, counts, TILES_X, toff, float(ALPHA_MIN)),
+            composite.strip_gated(G, table, counts, TILES_X, toff, float(ALPHA_MIN)))
+
+
+@pytest.mark.parametrize("case", STRIP_CASES)
+def test_strip_live_never_drops_a_gated_pair(case):
+    """The forward kernel's strip cull (`composite.strip_live`) keeps every
+    (strip, pair) in which some pixel passes the alpha gate: wide splats far
+    outside the image, sigma 0.4 px, opacity within an ulp of alpha_min,
+    aspect 50:1 at eight angles; and nothing past a tile's count is walked.
+    On small splats it drops most strips, and on every family something."""
+    G, table, counts = _strip_scene(case)
+    for toff, n in ((0, 12), (3, 9)):
+        live, gated = _strips(G, table[:n], counts[:n], toff)
+        assert int((gated & ~live).sum()) == 0
+        assert gated.any()
+        below = torch.arange(table.shape[1])[None, None, :] < counts[:n, None, None]
+        assert not (live & ~below).any()
+        share = 1.0 - float(live.sum()) / float(below.expand_as(live).sum())
+        assert share > (0.5 if case in ("small", "sharp") else 0.0), share
+
+
+def _walk_model(G, table, counts, live, chunk, alpha_min=float(ALPHA_MIN), t_min=1e-4):
+    """The forward kernel's loop in numpy: each strip of 32 pixels walks only
+    the pairs its cull kept, and the chunk's cut is cleared when the walk
+    crosses a chunk's first pair. Returns (acc [NT, 256, 24], T [NT, 256])."""
+    G, table, counts, live = (np.asarray(x) for x in (G, table, counts, live))
+    NT, K = table.shape
+    px, py = (np.asarray(x) for x in composite.tile_pixel_coords(NT, TILES_X, 16))
+    acc = np.zeros((NT, 256, 24), np.float32)
+    T = np.ones((NT, 256), np.float32)
+    for t in range(NT):
+        for s in range(8):
+            p = slice(32 * s, 32 * s + 32)
+            cut = np.zeros(32, bool)
+            start_seen = False
+            for k in range(min(int(counts[t]), K)):
+                start_seen |= k % chunk == 0
+                if not live[t, s, k]:
+                    continue
+                if start_seen:
+                    cut[:] = False
+                    start_seen = False
+                r = G[table[t, k]] if table[t, k] >= 0 else np.zeros(32, np.float32)
+                dx, dy = r[0] - px[t, p], r[1] - py[t, p]
+                power = np.float32(-0.5) * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy
+                alpha = np.minimum(np.float32(0.99), r[5] * np.exp(power))
+                test = T[t, p] * (1 - alpha)
+                on = (power <= 0) & (alpha >= alpha_min) & ~cut
+                ok = on & (test >= t_min)
+                cut |= on & ~ok
+                acc[t, p] += np.where(ok, alpha * T[t, p], 0)[:, None] * r[None, 8:]
+                T[t, p] = np.where(ok, test, T[t, p])
+    return acc, T
+
+
+@pytest.mark.parametrize("K,chunk", [(128, 32), (128, 64), (96, 48)])
+def test_strip_walk_composites_like_the_plain_loop(K, chunk):
+    """Walking only the pairs a strip's cull kept, with the cut cleared at
+    the first walked pair of a new chunk, composites what the plain version
+    composites from every pair: 1e-5 absolute, for chunks that are and are
+    not a multiple of the kernel's group of 32."""
+    G, table, counts = _far_and_sharp(2, 320, K)[:3]
+    live = composite.strip_live(G, table, counts, TILES_X, 0, float(ALPHA_MIN))
+    assert 0 < int(live.sum()) < int(counts.sum()) * 8
+    acc_m, T_m = _walk_model(G, table, counts, live, chunk)
+    acc_p, T_p = composite.composite_fused_plain(G, table, counts, 16, TILES_X,
+                                                 alpha_min=float(ALPHA_MIN), chunk=chunk)
+    np.testing.assert_allclose(acc_m, acc_p.numpy(), atol=1e-5)
+    np.testing.assert_allclose(T_m, T_p.numpy(), atol=1e-5)
+
+
 SORT_SHAPES = [(3, 1, 2), (3, 1, 4), (3, 1, 8), (2, 1, 16), (2, 1, 64), (2, 1, 128),
                (2, 2, 128), (2, 4, 128), (2, 8, 128), (2, 16, 128), (1, 32, 128),
                (1, 64, 128)]

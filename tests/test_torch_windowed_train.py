@@ -39,12 +39,10 @@ def _blocked(G_s, window_blocks):
     return G_pad.T.reshape(32, P_pad // 128, 128).transpose(1, 0, 2)
 
 
-@pytest.mark.parametrize("case", ["store_off", "store_on", "starved"])
-def test_windowed_bwd_plain_matches_jax(case):
-    """`composite_windowed_bwd_plain` on the JAX package's own prepared
-    inputs against its Pallas kernel (interpret): 1e-4 relative to each
-    output row's scale; the rows 6-7 and every slot past a tile's count are
-    zero."""
+def _bwd_case(case):
+    """The JAX package's own prepared inputs of one windowed case with seeded
+    cotangents: (the port's arguments as tensors, keywords, the Pallas
+    backward's dGt in interpret mode, counts)."""
     jcfg, tcfg, jpre, _, objs = _pre_both(case)
     G_s, _, tl, counts, bases, dests, nblks, *_ = _jax_prepare(
         jpre, jnp.asarray(objs), tiles_x=TILES_X, tiles_y=TILES_Y, cfg=jcfg)
@@ -62,16 +60,50 @@ def test_windowed_bwd_plain_matches_jax(case):
                                        jnp.asarray(d_acc), jnp.asarray(d_T), T, 16, TILES_X,
                                        w_blocks=jcfg.window_blocks, interpret=True, **kw))
     t = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
-    got = win.composite_windowed_bwd(t(G_s), t(tl), t(counts), t(bases), t(dests),
-                                     t(nblks), t(d_acc), t(d_T), t(T), 16, TILES_X,
-                                     **kw).numpy()
+    args = (t(G_s), t(tl), t(counts), t(bases), t(dests), t(nblks), t(d_acc), t(d_T), t(T),
+            16, TILES_X)
+    return args, kw, want, np.asarray(counts)
+
+
+def _row_rel(got, want):
     scale = np.abs(want).max(axis=(0, 2))
     live = scale > 0
-    rel = np.abs(got - want).max(axis=(0, 2))[live] / scale[live]
+    return np.abs(got - want).max(axis=(0, 2))[live] / scale[live], live
+
+
+@pytest.mark.parametrize("case", ["store_off", "store_on", "starved"])
+def test_windowed_bwd_plain_matches_jax(case):
+    """`composite_windowed_bwd_plain` on the JAX package's own prepared
+    inputs against its Pallas kernel (interpret): 1e-4 relative to each
+    output row's scale; the rows 6-7 and every slot past a tile's count are
+    zero."""
+    args, kw, want, counts = _bwd_case(case)
+    got = win.composite_windowed_bwd(*args, **kw).numpy()
+    rel, live = _row_rel(got, want)
     assert rel.max() <= 1e-4, rel
     assert live[:6].all() and live[8:].sum() >= 20 and not live[6:8].any()
-    past = np.arange(got.shape[2])[None, :] >= np.asarray(counts)[:, None]
+    past = np.arange(got.shape[2])[None, :] >= counts[:, None]
     assert not got.transpose(0, 2, 1)[past].any()
+
+
+@pytest.mark.parametrize("case", ["store_off", "store_on", "starved"])
+def test_windowed_bwd_matrix_form(case):
+    """The windowed backward's sums over a tile's pixels as the CUDA kernel
+    takes them (`matrix_form=True`: two float32 matrix products, the geometry
+    gradients from six moments about the tile's centre) against the direct
+    sums, 2e-5 relative per output row (the moment expansion's cancellation;
+    the slice store's copies keep their parents' centres), and against the
+    Pallas kernel at the direct form's bar of 1e-4."""
+    args, kw, want, counts = _bwd_case(case)
+    direct = win.composite_windowed_bwd_plain(*args, **kw).numpy()
+    matrix = win.composite_windowed_bwd_plain(*args, **kw, matrix_form=True).numpy()
+    rel, live = _row_rel(matrix, direct)
+    assert live[:6].all() and rel.max() <= 2e-5, rel
+    rel_j, _ = _row_rel(matrix, want)
+    assert rel_j.max() <= 1e-4, rel_j
+    np.testing.assert_array_equal(matrix[:, 6:8], 0.0)
+    past = np.arange(matrix.shape[2])[None, :] >= counts[:, None]
+    assert not matrix.transpose(0, 2, 1)[past].any()
 
 
 def _loss_j(out, tgt):
