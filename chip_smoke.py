@@ -158,22 +158,26 @@ def live_pixel_pairs(G, table, counts, tiles_x, chunk, alpha_min, t_min) -> int:
     return total
 
 
-def strip_check(G, table, counts, tiles_x, alpha_min):
-    """The forward kernel's strip cull (`composite.strip_live`, the kernel's
-    arithmetic and margin) against the gate itself: the (strip, pair) tests
-    made, the share dropped, the share in which some pixel gates the pair
-    (the most a cull could keep away), and the dropped ones among those,
-    which must be none."""
+def cull_stats(live, gated, counts):
+    """A strip cull (`live` [NT, 8, K]: the kernel's arithmetic and margin)
+    against the gate itself (`gated`): the (strip, pair) tests made, the
+    share dropped, the share in which some pixel gates the pair (the most a
+    cull could keep away), and the dropped ones among those, which must be
+    none."""
     import torch
 
-    from sags_tpu_torch.ops import composite
-
-    live = composite.strip_live(G, table, counts, tiles_x, 0, alpha_min)
-    gated = composite.strip_gated(G, table, counts, tiles_x, 0, alpha_min)
-    tests = 8 * int(torch.clamp(counts, max=table.shape[1]).sum())
+    tests = 8 * int(torch.clamp(counts, max=live.shape[-1]).sum())
     return {"strip_tests": tests, "dropped_share": 1.0 - int(live.sum()) / max(tests, 1),
             "gated_share": int(gated.sum()) / max(tests, 1),
             "gated_strips_dropped": int((gated & ~live).sum())}
+
+
+def strip_check(G, table, counts, tiles_x, alpha_min):
+    """`cull_stats` of the classic forward kernel (`composite.strip_live`)."""
+    from sags_tpu_torch.ops import composite
+
+    return cull_stats(composite.strip_live(G, table, counts, tiles_x, 0, alpha_min),
+                      composite.strip_gated(G, table, counts, tiles_x, 0, alpha_min), counts)
 
 
 def thin_scene(device, aspect, n=8192, K=1024, width=SLICE_W, height=SLICE_H, seed=3):
@@ -260,6 +264,86 @@ def thin_scene_phase(device, **sizes):
             f"the strip cull dropped a gated pair on the {name} scene: {strips}"
         assert off <= (0.0 if name == "thin" else NEEDLE_PIXELS_OFF), \
             f"composite_fused disagrees on the {name} scene: {out[name]}"
+    return out
+
+
+def thin_windowed(G, table, tiles_x, tiles_y, span_blocks=4, seed=5):
+    """A thin-splat scene's rows as the windowed kernels take them: G_s
+    [n, 40] with each row's rect the whole image (columns 32..35) and a
+    seeded depth rank (column 36); the host table's work list through one
+    span that numbers every row (window id = row); the kernel sort's plan,
+    four spans of `span_blocks` blocks a tile (a window of 4 · span_blocks
+    blocks), placed by the tile, so the exact tile cull picks among the
+    window's rows."""
+    import torch
+
+    dev = G.device
+    n, NT = G.shape[0], table.shape[0]
+    G_s = torch.zeros((n, 40), device=dev)
+    G_s[:, :32] = G[:, :32]
+    G_s[:, 34], G_s[:, 35] = float(tiles_x), float(tiles_y)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G_s[:, 36] = torch.randperm(n, generator=g).to(dev, torch.float32)
+    one = lambda v: torch.full((NT,), v, dtype=torch.int32, device=dev)
+    host = (G_s, table.reshape(NT, -1, 128), one(0), one(0), one(n // 128))
+    t = torch.arange(NT, device=dev, dtype=torch.int32)
+    nb = n // 128
+    base = torch.stack([(span_blocks * (t % (nb // span_blocks)) + nb // 4 * j) % nb
+                        for j in range(4)], 1)
+    dest = torch.arange(4, device=dev, dtype=torch.int32)[None, :].expand(NT, 4) * span_blocks
+    flat = lambda x: x.reshape(-1).contiguous()
+    ksort = (G_s, flat(base), flat(dest), flat(torch.full_like(base, span_blocks)),
+             flat(base * 128), flat((base + span_blocks) * 128))
+    return host, ksort
+
+
+def thin_windowed_phase(device, K=1024, chunk=512, **sizes):
+    """`composite_windowed` and `composite_windowed_sorted` on the thin-splat
+    scenes (4-8:1 and 20-60:1, centred off the image), under both EWA forms
+    and the three feature tiers: acc and T bitwise equal to the plain
+    versions, nv exact, and the windowed strip cull dropping no strip in
+    which a pixel passes the loop's gate."""
+    import torch
+
+    from sags_tpu_torch.ops import windowed as win
+
+    out = {}
+    kw = dict(alpha_min=1.0 / 255.0, t_min=1e-4, chunk=chunk)
+    for name, aspect in (("thin", (4.0, 8.0)), ("needle", (20.0, 60.0))):
+        G, table, counts, tiles_x = thin_scene(device, aspect, K=K, **sizes)
+        tiles_y = table.shape[0] // tiles_x
+        host, ksort = thin_windowed(G, table, tiles_x, tiles_y)
+        hargs = (host[0], host[1], counts, *host[2:], 16, tiles_x)
+        sargs = (*ksort, 16, tiles_x)
+        res = {}
+        for ewa in ("vpu", "quad"):
+            for prec in ("highest", "high", "default"):
+                vkw = dict(kw, ewa_impl=ewa, feat_prec=prec)
+                a, t = win.composite_windowed(*hargs, n_span=1, **vkw)
+                a_p, t_p = win.composite_windowed_plain(*hargs, n_span=1, **vkw)
+                skw = dict(vkw, n_span=4, w_blocks=16, k_tile=K)
+                a_s, t_s, nv = win.composite_windowed_sorted(*sargs, **skw)
+                a_sp, t_sp, nv_p = win.composite_windowed_sorted_plain(*sargs, **skw)
+                torch.cuda.synchronize()
+                ok = {"composite_windowed": torch.equal(a, a_p) and torch.equal(t, t_p),
+                      "composite_windowed_sorted": torch.equal(a_s, a_sp)
+                      and torch.equal(t_s, t_sp) and torch.equal(nv, nv_p)}
+                res[f"{ewa}:{prec}"] = ok
+                assert all(ok.values()), f"{name} scene, {ewa}/{prec}: {ok}"
+            ids, nv = win.sorted_ids_plain(win.window_keys_plain(
+                *ksort, 16, tiles_x, kw["alpha_min"], 4, 16), K)
+            srows = win.window_rows(ids, *ksort[1:4], 4)
+            res[f"strip_cull:{ewa}"] = {
+                "composite_windowed": cull_share(host[0], table.long(), counts, tiles_x,
+                                                 kw["alpha_min"], ewa),
+                "composite_windowed_sorted": cull_share(host[0], srows, torch.clamp(nv, max=K),
+                                                        tiles_x, kw["alpha_min"], ewa)}
+            for kern, c in res[f"strip_cull:{ewa}"].items():
+                assert c["gated_strips_dropped"] == 0, f"{name} scene, {kern}, {ewa}: {c}"
+        res.update(pairs=int(counts.sum()), nv_total=int(nv.sum()), bitwise=True)
+        emit({"phase": "thin_windowed", "name": name, "aspect": aspect, **res})
+        assert float(t.min()) < 0.5 and int(nv.sum()) > 0, f"the {name} scene is empty"
+        out[name] = res
     return out
 
 
@@ -362,16 +446,18 @@ def _sort_stages(n: int) -> int:
     return s * (s + 1) // 2
 
 
-def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=1024):
-    """The windowed compositors and the block sort against their plain
-    versions at the kernel cell; the kernel sort against the host table."""
+def windowed_cell(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=1024):
+    """The windowed kernel cell: the seeded scene's preprocessed Gaussians,
+    the probe's budgets at tile capacity K, the host-table inputs of
+    `composite_windowed` (at the probe's window and, `host16`, cut to the
+    kernel sort's 16 blocks) and the inputs of `composite_windowed_sorted`
+    at that ceiling."""
     import dataclasses
 
     import torch
 
     from sags_tpu_torch.core.camera import make_camera
     from sags_tpu_torch.core.config import RasterizeConfig
-    from sags_tpu_torch.ops import composite, sort, windowed as win
     from sags_tpu_torch.ops import rasterize as rz
 
     xyz, opac, scales, quats, colors, objs = random_scene(P, device)
@@ -379,7 +465,6 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
                       width, height, 2 * math.atan(width / (2 * 431.8)),
                       2 * math.atan(height / (2 * 431.8)))
     tiles_x, tiles_y = width // 16, height // 16
-    NT = tiles_x * tiles_y
     base = RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=K, windowed_chunk=512,
                            windowed_big_capacity=128)
     with torch.no_grad():
@@ -387,18 +472,86 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
                rz.windowed_occupancy(xyz, opac, scales, quats, cam, base).items()}
         cfg = rz.derive_windowed_budgets(base, occ, P)
         pre = rz.preprocess(xyz, opac, scales, quats, cam, cfg, colors=colors)
-        (G_s, table, tl, counts, bases, dests, nblks, n_binned, ov_rect, ov_tile, ov_win,
-         ov_big) = rz._prepare_windowed(pre, objs, tiles_x, tiles_y, cfg)
-    chunk = rz._windowed_chunk(cfg)
+        host = rz._prepare_windowed(pre, objs, tiles_x, tiles_y, cfg)
+        kcfg = dataclasses.replace(cfg, window_blocks=16, windowed_sort="kernel")
+        ksort = rz._prepare_windowed(pre, objs, tiles_x, tiles_y, kcfg, build_table=False)
+        host16 = rz._prepare_windowed(pre, objs, tiles_x, tiles_y,
+                                      dataclasses.replace(cfg, window_blocks=16))
+    kw = dict(alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min,
+              chunk=rz._windowed_chunk(cfg), n_span=4)
+    return dict(pre=pre, objs=objs, cfg=cfg, tiles_x=tiles_x, tiles_y=tiles_y, kw=kw,
+                host=host, args=(host[0], host[2], host[3], host[4], host[5], host[6], 16,
+                                 tiles_x),
+                ksort=ksort, sargs=(*ksort[:6], 16, tiles_x), host16=host16,
+                skw=dict(kw, w_blocks=16, k_tile=K))
+
+
+class swapped:
+    """`module.name` set to `kernel` inside the block: a wrapper launches a
+    variant of its kernel (built with other flags) for a measurement."""
+
+    def __init__(self, module, name, kernel):
+        self.module, self.name, self.kernel = module, name, kernel
+
+    def __enter__(self):
+        self.old = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.kernel)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.old)
+
+
+def cull_share(G_s, rows, counts, tiles_x, alpha_min, ewa_impl="vpu"):
+    """`cull_stats` of the windowed loop (`windowed.strip_live`) on the
+    entries a kernel composites, whose global rows are `rows`."""
+    from sags_tpu_torch.ops import windowed as win
+
+    return cull_stats(win.strip_live(G_s, rows, counts, tiles_x, 0, alpha_min, ewa_impl),
+                      win.strip_gated(G_s, rows, counts, tiles_x, 0, alpha_min, ewa_impl),
+                      counts)
+
+
+def sorted_phases(sargs, skw, stops, reps=20):
+    """`composite_windowed_sorted`'s time split into its three phases, from
+    variants that end after the keys and after the sort (`stops`: the
+    kernel built with -DSAGSW_STOP_AFTER=1 and =2)."""
+    from sags_tpu_torch.ops import windowed as win
+
+    run = lambda: win.composite_windowed_sorted(*sargs, **skw)
+    t = []
+    for kern in stops:
+        with swapped(win, "SORTED", kern):
+            t.append(cuda_ms(run, reps))
+    total = cuda_ms(run, reps)
+    return {"keys_ms": t[0], "sort_ms": t[1] - t[0], "composite_ms": total - t[1],
+            "total_ms": total}
+
+
+def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=1024,
+                          stops=None):
+    """The windowed compositors and the block sort against their plain
+    versions at the kernel cell; the kernel sort against the host table;
+    the strip cull's share; with `stops`, the kernel sort's phase split."""
+    import torch
+
+    from sags_tpu_torch.ops import composite, sort, windowed as win
+
+    cell = windowed_cell(device, P, width, height, K)
+    pre, objs, cfg, tiles_x, tiles_y = (cell[k] for k in ("pre", "objs", "cfg", "tiles_x",
+                                                          "tiles_y"))
+    NT = tiles_x * tiles_y
+    (G_s, table, tl, counts, bases, dests, nblks, n_binned, ov_rect, ov_tile, ov_win,
+     ov_big) = cell["host"]
+    chunk = cell["kw"]["chunk"]
     gate = dict(alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min)
-    kw = dict(gate, chunk=chunk, n_span=4)
+    kw = cell["kw"]
     out = {"window_blocks": cfg.window_blocks, "rows": int(G_s.shape[0]),
            "n_binned": int(n_binned), "overflow_window": int(ov_win),
            "overflow_big": int(ov_big), "overflow_tile": int(ov_tile)}
 
     # -- composite_windowed: acc and T bitwise equal (the plain version takes
     # the kernel's float32 operations in its order)
-    args = (G_s, tl, counts, bases, dests, nblks, 16, tiles_x)
+    args = cell["args"]
     acc, T = win.composite_windowed(*args, **kw)
     acc_p, T_p = win.composite_windowed_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -409,6 +562,8 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
     kept = int((rows >= 0).sum())
     n_rows = int(torch.unique(rows[rows >= 0]).numel())
     pairs_px = float(live_pixel_pairs(G_s[:, :32], rows, counts, tiles_x, chunk, **gate))
+    cull = cull_share(G_s, rows, counts, tiles_x, cfg.alpha_min)
+    assert cull["gated_strips_dropped"] == 0, f"composite_windowed's cull: {cull}"
     out["composite_windowed"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: win.composite_windowed(*args, **kw), 20),
@@ -416,7 +571,7 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
         # each composited row's 32 columns once, the kept work list, the
         # span plan and counts, acc + T out
         bytes=128 * n_rows + 4 * kept + 4 * NT * (1 + 3 * 4) + 4 * NT * 256 * 25,
-        ops=FWD_OPS_PER_PIXEL_PAIR * pairs_px, live_pixel_pairs=pairs_px)
+        ops=FWD_OPS_PER_PIXEL_PAIR * pairs_px, live_pixel_pairs=pairs_px, strip_cull=cull)
     del acc_p, T_p
 
     # -- composite_windowed_bwd: 2e-4 relative per row of dGt (the fused
@@ -448,12 +603,8 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
     del dG1, dG2
 
     # -- composite_windowed_sorted at the largest window it sorts (16 blocks)
-    kcfg = dataclasses.replace(cfg, window_blocks=16, windowed_sort="kernel")
-    with torch.no_grad():
-        G2, b2, d2, n2, ss, se, _, ov_raw, _ = rz._prepare_windowed(
-            pre, objs, tiles_x, tiles_y, kcfg, build_table=False)
-    sargs = (G2, b2, d2, n2, ss, se, 16, tiles_x)
-    skw = dict(kw, w_blocks=16, k_tile=K)
+    G2, b2, d2, n2, ss, se, _, ov_raw, _ = cell["ksort"]
+    sargs, skw = cell["sargs"], cell["skw"]
     acc_s, T_s, nv = win.composite_windowed_sorted(*sargs, **skw)
     acc_sp, T_sp, nv_p = win.composite_windowed_sorted_plain(*sargs, **skw)
     torch.cuda.synchronize()
@@ -468,6 +619,8 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
                       torch.full_like(order, -1))
     srows = win.window_rows(ids, b2, d2, n2, 4)
     scount = torch.clamp(nv, max=K)
+    scull = cull_share(G2, srows, scount, tiles_x, cfg.alpha_min)
+    assert scull["gated_strips_dropped"] == 0, f"composite_windowed_sorted's cull: {scull}"
     n_comp = int(torch.unique(srows[srows >= 0]).numel())
     # rows the windows read (in a span and in an allocated block)
     delta = torch.zeros(G2.shape[0] + 1, dtype=torch.int64, device=device)
@@ -477,9 +630,16 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
     delta.index_add_(0, lo[live], torch.ones_like(lo[live]))
     delta.index_add_(0, hi[live], -torch.ones_like(hi[live]))
     n_span_rows = int((torch.cumsum(delta, 0)[:-1] > 0).sum())
+    # the key tests: each tile's rows in its spans and inside its 16 blocks
+    nb = torch.clamp(torch.minimum(n2.long(), 16 - d2.long()), min=0)
+    key_rows = int(torch.clamp(
+        torch.minimum(torch.clamp(se.long(), max=G2.shape[0]), (b2.long() + nb) * 128)
+        - torch.maximum(ss.long(), b2.long() * 128), min=0).sum())
     spairs = float(live_pixel_pairs(G2[:, :32], srows, scount, tiles_x, chunk, **gate))
-    n_sort = 2048
-    ce = NT * (n_sort // 2) * _sort_stages(n_sort)
+    # the compare-exchanges of the sort this run's keys need: nv padded to a
+    # power of two per tile
+    n_pow2 = [1 << max(int(x) - 1, 0).bit_length() for x in nv.tolist()]
+    ce = sum((n // 2) * _sort_stages(n) for n in n_pow2 if n > 1)
     out["composite_windowed_sorted"] = dict(
         max_abs_err=err_s, nv_exact=True,
         ms=cuda_ms(lambda: win.composite_windowed_sorted(*sargs, **skw), 20),
@@ -487,20 +647,21 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
         # validity columns (11 floats) of every window row, the 24 features
         # of every composited row, the span plan, acc + T + nv out
         bytes=44 * n_span_rows + 96 * n_comp + 4 * NT * 5 * 4 + 4 * NT * (256 * 25 + 1),
-        # compositing, ~40 operations of key math per slot, and the sort's
-        # compare-exchanges (a min and a max each)
-        ops=FWD_OPS_PER_PIXEL_PAIR * spairs + 40.0 * NT * n_sort + 2.0 * ce,
-        live_pixel_pairs=spairs, compare_exchanges=ce, nv_total=int(nv.sum()),
-        overflow_window_raw=int(ov_raw))
+        # compositing, ~40 operations of key math per window row, and the
+        # sort's compare-exchanges (a min and a max each)
+        ops=FWD_OPS_PER_PIXEL_PAIR * spairs + 40.0 * key_rows + 2.0 * ce,
+        live_pixel_pairs=spairs, compare_exchanges=ce, key_rows=key_rows,
+        nv_total=int(nv.sum()),
+        overflow_window_raw=int(ov_raw), strip_cull=scull)
+    if stops is not None:
+        out["composite_windowed_sorted"]["phases"] = sorted_phases(sargs, skw, stops)
 
     variants = variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, acc_s, sargs,
                               skw)
 
     # -- the kernel sort against the host table at the same 16-block budget:
     # the same bits on every tile whose spans all fit the window
-    with torch.no_grad():
-        h = rz._prepare_windowed(pre, objs, tiles_x, tiles_y,
-                                 dataclasses.replace(cfg, window_blocks=16))
+    h = cell["host16"]
     acc_h, T_h = win.composite_windowed(h[0], h[2], h[3], h[4], h[5], h[6], 16, tiles_x,
                                         **kw)
     need = torch.where(se > ss, -torch.div(b2 * 128 - se, 128, rounding_mode="floor"), 0)
@@ -525,11 +686,12 @@ def windowed_kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=10
     assert torch.equal(sort.sort_blocks(x), sort.sort_blocks_plain(x)), \
         "sort_blocks disagrees with torch.sort"
     flat = x.reshape(NT, -1)
+    ce_full = NT * 1024 * _sort_stages(2048)
     out["sort_blocks"] = dict(
         max_abs_err=0.0, ms=cuda_ms(lambda: sort.sort_blocks(x), 50),
         plain_ms=cuda_ms(lambda: sort.sort_blocks_plain(x), 50),
         library_ms=cuda_ms(lambda: torch.sort(flat, dim=1), 50),
-        bytes=8 * x.numel(), ops=2.0 * ce, compare_exchanges=ce)
+        bytes=8 * x.numel(), ops=2.0 * ce_full, compare_exchanges=ce_full)
     out["variants"] = variants
     emit({"phase": "windowed_kernels", "tile_capacity": K,
           "window_blocks_host": cfg.window_blocks, "rows": out["rows"],
@@ -879,14 +1041,20 @@ def slam_windowed_phase(device, frames, classic, n_warm=16, n_timed=8):
         assert launches[sym] == 0, f"{sym} launched in the windowed loop"
     assert all(same.values()), f"windowed gradients not bitwise reproducible: {same}"
     assert bwd["rel_err"] <= 2e-4, f"composite_windowed_bwd at the loop's shapes: {bwd}"
-    return launches, n_frames
+    fwd = bwd["composite_windowed"]
+    assert fwd["bitwise"], f"composite_windowed at the loop's shapes: {fwd}"
+    assert fwd["strip_cull"]["gated_strips_dropped"] == 0, \
+        f"composite_windowed's cull at the loop's shapes: {fwd}"
+    return launches, n_frames, bwd
 
 
 def loop_bwd_check(device, pipe, camera):
-    """`composite_windowed_bwd` against its plain version at the shapes the
-    windowed loop trains with (its final window, R, tile capacity and slice
-    store) on the inputs `rasterize` prepares for `camera`, with seeded
-    cotangents: 2e-4 relative per output row, as at the kernel cell."""
+    """The windowed kernels at the shapes the windowed loop trains with (its
+    final window, R, tile capacity and slice store) on the inputs
+    `rasterize` prepares for `camera`: `composite_windowed` bitwise equal to
+    its plain version, with its strip cull's share and time; and
+    `composite_windowed_bwd`, with seeded cotangents, to 2e-4 relative per
+    output row, as at the kernel cell."""
     import torch
 
     from sags_tpu_torch.mapping import gaussian_map as gm
@@ -902,7 +1070,16 @@ def loop_bwd_check(device, pipe, camera):
                             active_mask=m.active)
         G_s, _, tl, counts, b, d, n, *_ = rz._prepare_windowed(pre, m.obj_dc, tiles_x,
                                                                tiles_y, rc)
-    acc, T = win.composite_windowed(G_s, tl, counts, b, d, n, rc.tile, tiles_x, **kw)
+    fargs = (G_s, tl, counts, b, d, n, rc.tile, tiles_x)
+    acc, T = win.composite_windowed(*fargs, **kw)
+    acc_p, T_p = win.composite_windowed_plain(*fargs, **kw)
+    torch.cuda.synchronize()
+    rows = win.window_rows(tl, b, d, n, kw["n_span"])
+    fwd = {"bitwise": torch.equal(acc, acc_p) and torch.equal(T, T_p),
+           "max_abs_err": max(float((acc - acc_p).abs().max()), float((T - T_p).abs().max())),
+           "strip_cull": cull_share(G_s, rows, counts, tiles_x, rc.alpha_min),
+           "ms": cuda_ms(lambda: win.composite_windowed(*fargs, **kw), 5)}
+    del acc_p, T_p
     g = torch.Generator(device=device).manual_seed(2)
     d_acc = torch.randn(acc.shape, generator=g, device=device)
     d_T = torch.randn(T.shape, generator=g, device=device)
@@ -914,7 +1091,8 @@ def loop_bwd_check(device, pipe, camera):
             "n_span": kw["n_span"], "chunk": kw["chunk"], "tile_capacity": rc.tile_capacity,
             "window_blocks": rc.window_blocks, "rows": int(G_s.shape[0]),
             "entries": int((tl >= 0).sum()),
-            "ms": cuda_ms(lambda: win.composite_windowed_bwd(*bargs, **kw), 5)}
+            "ms": cuda_ms(lambda: win.composite_windowed_bwd(*bargs, **kw), 5),
+            "composite_windowed": fwd}
 
 
 def eval_phase(device, pipe, frames, poses):
@@ -1029,14 +1207,28 @@ def eval_phase(device, pipe, frames, poses):
                 want = win.composite_windowed_sorted_plain(G_s, b, d, n, ss, se, 16,
                                                            tiles_x, **skw)
                 assert torch.equal(got[2], want[2]), "eval frame: nv disagrees"
+            if mode == "windowed_host":
+                rows = win.window_rows(tl, b, d, n, kw["n_span"])
+                cnt = counts
+                ms = cuda_ms(lambda: win.composite_windowed(G_s, tl, counts, b, d, n, 16,
+                                                            tiles_x, **kw), 5)
+            else:
+                keys = win.window_keys_plain(G_s, b, d, n, ss, se, 16, tiles_x, rc.alpha_min,
+                                             kw["n_span"], rc.window_blocks)
+                ids, nv = win.sorted_ids_plain(keys, rc.tile_capacity)
+                rows = win.window_rows(ids, b, d, n, kw["n_span"])
+                cnt = torch.clamp(nv, max=rc.tile_capacity)
+                ms = cuda_ms(lambda: win.composite_windowed_sorted(G_s, b, d, n, ss, se, 16,
+                                                                   tiles_x, **skw), 5)
+            cull = cull_share(G_s, rows, cnt, tiles_x, rc.alpha_min)
         torch.cuda.synchronize()
         err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
             f"{mode} eval frame: {err} from the plain version"
-        checks[mode] = err
-    emit({"phase": "eval", "every": EVAL_EVERY, "modes": results,
-          "frame_check_max_abs_err": checks})
-    return results
+        assert cull["gated_strips_dropped"] == 0, f"{mode} eval frame's cull: {cull}"
+        checks[mode] = {"max_abs_err": err, "ms": ms, "strip_cull": cull}
+    emit({"phase": "eval", "every": EVAL_EVERY, "modes": results, "frame_check": checks})
+    return results, checks
 
 
 def main() -> int:
@@ -1051,7 +1243,9 @@ def main() -> int:
 
     device = resolve_device("cuda")
     t0 = time.perf_counter()
-    _build.build_all()
+    # the kernel sort ended after its keys and after its sort: its phase split
+    stops = [windowed.SORTED.variant(f"-DSAGSW_STOP_AFTER={k}") for k in (1, 2)]
+    _build.build_all(extra=stops)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     for src, log in _build.build_log.items():
@@ -1064,14 +1258,16 @@ def main() -> int:
 
     kres = kernel_phase(device)
     thin = thin_scene_phase(device)
-    wres = windowed_kernel_phase(device)
+    thin_w = thin_windowed_phase(device)
+    wres = windowed_kernel_phase(device, stops=stops)
     launches, pipe, frames, poses, classic = slam_phase(device)
     K_final = pipe.cfg.raster.tile_capacity
     if K_final not in kres:
         kres.update(kernel_phase(device, capacities=(K_final,)))
-    eres = eval_phase(device, pipe, frames, poses)
+    eres, eres_frame = eval_phase(device, pipe, frames, poses)
     n_frames = len(frames)
-    wlaunches, n_wframes = slam_windowed_phase(device, frames, dict(classic, poses=poses))
+    wlaunches, n_wframes, wloop = slam_windowed_phase(device, frames,
+                                                      dict(classic, poses=poses))
 
     # (source, TPU kernel, C symbol, the path whose launches count, frames on it)
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -1132,6 +1328,17 @@ def main() -> int:
           "strip_cull": dict({K: kres[K]["strip_cull"] for K in kres}, **thin),
           "windowed": {k: v for k, v in wres.items() if not isinstance(v, dict)},
           "ms_per_eval_render": {m: e["ms_per_eval_render"] for m, e in eres.items()}})
+    ws = wres["composite_windowed_sorted"]
+    emit({"composite_windowed_sorted_phases": ws["phases"],
+          "strip_cull_dropped_share": {
+              "kernel_cell": {k: wres[k]["strip_cull"]["dropped_share"]
+                              for k in ("composite_windowed", "composite_windowed_sorted")},
+              "windowed_loop": wloop["composite_windowed"]["strip_cull"]["dropped_share"],
+              "eval_frame": {m: c["strip_cull"]["dropped_share"]
+                             for m, c in eres_frame.items()},
+              "thin_scenes": {n: {e: {k: c["dropped_share"] for k, c in r[e].items()}
+                                  for e in ("strip_cull:vpu", "strip_cull:quad")}
+                              for n, r in thin_w.items()}}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

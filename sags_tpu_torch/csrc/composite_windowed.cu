@@ -10,14 +10,15 @@
 // T[t, p]. `ewa` (0 longhand, 1 quad), `prec` (0 highest, 1 high, 2
 // default) and `bf16_obj` pick the variant of windowed.cuh's loop.
 //
-// Bound: arithmetic, as composite_fused: each (pixel, pair) costs an exp and
-// ~50 flops; each pair's 128-byte row is read once per tile.
-// Design: one block per tile, one thread per pixel, the loop of windowed.cuh.
-// The TPU kernel's VMEM candidate window (14 blocks of 32x128 floats at the
-// default budget, 229 KB, beyond a Hopper block's 227 KB of shared memory;
-// up to 40 blocks after adaptation) is not reproduced: each id is resolved
-// through the <= 8 spans and its row gathered into shared memory, 32 rows
-// per round, which is what the window's select pass computes.
+// Bound: float32 arithmetic, as composite_fused: each (pixel, entry) the
+// loop evaluates costs an expf and ~20 rounded operations, a composited one
+// 24-72 more; each entry's 128-byte row (160 under bf16_obj) is read once
+// per tile. Design: one block of 256 threads per 16x16 tile, and the loop
+// of windowed.cuh (rows gathered a group ahead by cp.async, a per-warp strip
+// cull, one barrier a group). The TPU kernel's VMEM candidate window (14
+// blocks of 32x128 floats at the default budget, 229 KB; up to 40 after
+// adaptation) is not reproduced: the ids resolve through the <= 8 spans and
+// only the rows the work list names are read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,7 +35,7 @@ struct TableIds {
 }  // namespace
 
 template <int EWA, int PREC, bool BF16OBJ>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(sagsw::PIX, sagsw::MIN_BLOCKS)
 composite_windowed_kernel(const float* __restrict__ G, int row_stride,
                           int n_rows, const int32_t* __restrict__ table_local,
                           const int32_t* __restrict__ counts,
@@ -46,6 +47,7 @@ composite_windowed_kernel(const float* __restrict__ G, int row_stride,
                           float* __restrict__ acc_out,
                           float* __restrict__ T_out) {
   __shared__ sagsw::Spans spans;
+  __shared__ __align__(16) float rows[2 * sagsw::SUB * sagsw::RowStride<BF16OBJ>::value];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   if (tid < n_span) {
@@ -58,11 +60,10 @@ composite_windowed_kernel(const float* __restrict__ G, int row_stride,
   const int tg = t + tile_offset;  // global tile id (pixel coordinates)
   const TableIds ids{table_local + (size_t)t * K};
   const int count = min(counts[t], K);
-  const int PIX = blockDim.x;
   sagsw::composite_window<EWA, PREC, BF16OBJ>(
-      G, row_stride, n_rows, ids, count, spans, tile,
-      (float)((tg % tiles_x) * tile), (float)((tg / tiles_x) * tile), alpha_min,
-      t_min, chunk, acc_out + (size_t)t * PIX * sagsw::CF, T_out + (size_t)t * PIX);
+      rows, G, row_stride, n_rows, ids, count, spans, (float)((tg % tiles_x) * tile),
+      (float)((tg / tiles_x) * tile), alpha_min, t_min, chunk,
+      acc_out + (size_t)t * sagsw::PIX * sagsw::CF, T_out + (size_t)t * sagsw::PIX);
 }
 
 namespace {
@@ -88,11 +89,12 @@ extern "C" int sags_composite_windowed(
     float alpha_min, float t_min, int chunk, int ewa, int prec, int bf16_obj,
     void* acc_out, void* T_out, void* stream) {
   if (n_span < 1 || n_span > sagsw::MAX_SPAN || chunk < 1 || ewa < 0 || ewa > 1 ||
-      prec < 0 || prec > 2 || bf16_obj < 0 || bf16_obj > 1 ||
+      prec < 0 || prec > 2 || bf16_obj < 0 || bf16_obj > 1 || tile != sagsw::TILE ||
+      row_stride < sagsw::CH || row_stride % 4 || (reinterpret_cast<uintptr_t>(G) & 15) ||
       (bf16_obj && row_stride < sagsw::COL_OBJ_BF16 + sagsw::N_OBJ / 2))
     return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    kVariants[ewa][prec][bf16_obj]<<<num_tiles, tile * tile, 0, (cudaStream_t)stream>>>(
+    kVariants[ewa][prec][bf16_obj]<<<num_tiles, sagsw::PIX, 0, (cudaStream_t)stream>>>(
         (const float*)G, row_stride, n_rows, (const int32_t*)table_local,
         (const int32_t*)counts, (const int32_t*)bases, (const int32_t*)dests,
         (const int32_t*)nblks, n_span, K, tile, tiles_x, tile_offset,

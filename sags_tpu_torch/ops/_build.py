@@ -6,7 +6,10 @@ started together, and loaded with `ctypes`. Libraries are named by a hash of
 their source, every header it includes from `csrc/` (`#include "..."`,
 followed through headers), and the flags, under `build/kernels/` at the
 repository root, so an edited source or header never loads a stale one. Nothing is built or loaded at
-import time: the first launch (or `build_all()`) does it.
+import time: the first launch (or `build_all()`) does it. A kernel built
+with extra flags (`CudaKernel(..., flags=("-DNAME=1",), register=False)`)
+is a variant for measurements: its own library, outside the registry and
+its launch counts.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _registry: List["CudaKernel"] = []
-build_log: Dict[str, str] = {}  # source -> nvcc output (-Xptxas -v report)
+build_log: Dict[str, str] = {}  # "source [flags]" -> nvcc output (-Xptxas -v report)
 
 
 def _nvcc() -> str:
@@ -62,8 +65,8 @@ def source_files(source: str) -> List[str]:
     return found
 
 
-def _lib_path(source: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(source: str, flags: Sequence[str] = ()) -> str:
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
     for name in source_files(source):
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(name.encode() + b"\0" + f.read())
@@ -71,21 +74,23 @@ def _lib_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build(sources: Sequence[str]) -> None:
-    """Compile every source not built yet, one `nvcc` each, in parallel."""
+def build(specs) -> None:
+    """Compile every (source, flags) not built yet, one `nvcc` each, in
+    parallel; a bare source name stands for (source, ())."""
+    specs = [(s, ()) if isinstance(s, str) else (s[0], tuple(s[1])) for s in specs]
     with _lock:
-        todo = [s for s in dict.fromkeys(sources) if s not in _libs]
+        todo = [s for s in dict.fromkeys(specs) if s not in _libs]
         if not todo:
             return
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = []
-        for src in todo:
-            path = _lib_path(src)
+        for src, flags in todo:
+            path = _lib_path(src, flags)
             if os.path.exists(path):
                 continue
             tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
-            procs.append((src, path, tmp, subprocess.Popen(
+            cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, os.path.join(CSRC, src)]
+            procs.append((" ".join((src, *flags)), path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failed = []
@@ -98,14 +103,14 @@ def build(sources: Sequence[str]) -> None:
                 os.replace(tmp, path)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        for src in todo:
-            _libs[src] = ctypes.CDLL(_lib_path(src))
+        for spec in todo:
+            _libs[spec] = ctypes.CDLL(_lib_path(*spec))
 
 
-def build_all() -> None:
+def build_all(extra: Sequence["CudaKernel"] = ()) -> None:
     """Build every registered kernel (the modules under `ops/` register
-    theirs when imported)."""
-    build([k.source for k in _registry])
+    theirs when imported) and the variants `extra`, all at once."""
+    build([k.spec for k in [*_registry, *extra]])
 
 
 class CudaKernel:
@@ -114,19 +119,26 @@ class CudaKernel:
     `launches` counts successful launches: the wrapper that owns the kernel
     calls `launch` once per kernel launch and nowhere else."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 flags: Sequence[str] = (), register: bool = True):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.spec = (source, tuple(flags))
         self.launches = 0
         self._fn = None
         self._err = None
-        _registry.append(self)
+        if register:
+            _registry.append(self)
+
+    def variant(self, *flags: str) -> "CudaKernel":
+        """The same entry point built with extra compiler flags, unregistered."""
+        return CudaKernel(self.source, self.symbol, self.argtypes, flags, register=False)
 
     def _resolve(self):
         if self._fn is None:
-            build([self.source])
-            lib = _libs[self.source]
+            build([self.spec])
+            lib = _libs[self.spec]
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -146,7 +158,7 @@ class CudaKernel:
     def function(self, symbol: str, argtypes: Sequence, restype):
         """Another C function of the same library (e.g. a size query)."""
         self._resolve()
-        fn = getattr(_libs[self.source], symbol)
+        fn = getattr(_libs[self.spec], symbol)
         fn.argtypes = list(argtypes)
         fn.restype = restype
         return fn

@@ -2,11 +2,12 @@
 `sags_tpu.ops.gicp`: surfel covariances (kNN + the closed-form symmetric
 3×3 eigendecomposition + NORMALIZED_ELLIPSE and the other regularizations),
 nearest-neighbour correspondences with the Mahalanobis (C_B + R C_A Rᵀ)⁻¹,
-and the LsqRegistration Levenberg-Marquardt loop with the reference's
-accept/λ rules (`lsq_registration_impl.hpp:53-173`).
+and the LsqRegistration loop: Gauss-Newton, or Levenberg-Marquardt with the
+reference's accept/λ rules (`lsq_registration_impl.hpp:53-173`).
 
-The JAX `lax.while_loop`s become Python loops: each LM iteration reads its
-accept/convergence flags on the host (one sync per iteration).
+The JAX `lax.while_loop`s become Python loops: each Gauss-Newton iteration
+and each LM trial reads its convergence (and accept) flags on the host (one
+sync each).
 """
 
 from __future__ import annotations
@@ -222,16 +223,33 @@ class AlignResult(NamedTuple):
     lm_iterations: int  # inner LM trials over all outer iterations
 
 
+OPTIMIZERS = ("lm", "gn")  # `GICPConfig.optimizer`
+
+
 def lsq_align(linearize, error_fn, init_T: torch.Tensor, cfg: GICPConfig) -> AlignResult:
-    """The LsqRegistration outer loop with `step_lm` (`:125-173`)."""
-    if cfg.optimizer != "lm":
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported (only 'lm')")
+    """The LsqRegistration outer loop (`lsq_registration_impl.hpp:53-173`):
+    `step_gn` for `optimizer="gn"`, `step_lm` (`:125-173`) for "lm". Each
+    Gauss-Newton iteration and each LM trial reads its flags on the host
+    (one sync)."""
+    if cfg.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r} (one of {OPTIMIZERS})")
     dev = init_T.device
     I6 = torch.eye(6, device=dev)
     conv = lambda d: _is_converged(d, cfg.rotation_epsilon, cfg.transformation_epsilon)
 
     def delta_of(d):
         return se3_matrix(so3_exp(d[:3]), d[3:])
+
+    if cfg.optimizer == "gn":
+        T, H, e = init_T, I6, torch.tensor(float("inf"), device=dev)
+        i, converged = 0, False
+        while i < cfg.max_iterations and not converged:
+            H, b, e, _ = linearize(T)
+            delta = delta_of(torch.linalg.solve(H, -b))
+            T = delta @ T
+            converged = bool(conv(delta))  # one sync
+            i += 1
+        return AlignResult(T, H, converged, i, e, 0)
 
     T = init_T
     lam = torch.tensor(-1.0, device=dev)

@@ -25,11 +25,14 @@ Two sources for the depth-ordered work list:
   * the kernel itself (`composite_windowed_sorted`): per window slot,
     validity (in its span, the tile inside the row's rect, the exact
     conic-q minimum under the alpha-gate level) and a `(dq << 11) | slot`
-    key, bitonic-sorted per tile; the first `k_tile` composite, and `nv`
+    key; the valid keys are bitonic-sorted per tile (the kernel sorts only
+    those, `compacted_sort_plain`); the first `k_tile` composite, and `nv`
     counts the valid slots before that cut.
 Compositing runs in chunks of `chunk` pairs (`windowed_chunk`): a pixel cut
 by T·(1−α) < t_min stays cut to the end of its chunk. Empty slots (id −1)
-read as zero rows and fail the alpha gate.
+read as zero rows and fail the alpha gate. Both forward kernels walk, per
+warp of 16×2 pixels, only the entries their strip cull keeps
+(`strip_live`), which changes no bit.
 
 The forward compositors take the TPU kernels' options: `ewa_impl` ("vpu"
 longhand, "quad" the six-monomial expansion on tile-local coordinates),
@@ -52,9 +55,10 @@ import ctypes
 import torch
 
 from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
-from sags_tpu_torch.ops.binning import cull_c2, tile_qmin
-from sags_tpu_torch.ops.composite import (ewa_power, pair_grads, pair_grads_matrix,
-                                          tile_pixel_coords)
+from sags_tpu_torch.ops.binning import box_qmin, cull_c2, gate_level, tile_qmin
+from sags_tpu_torch.ops.composite import (CULL_ABS, CULL_REL, STRIP_PIXELS, ewa_power,
+                                          pair_grads, pair_grads_matrix, tile_pixel_coords)
+from sags_tpu_torch.ops.sort import sort_blocks_network_plain
 
 HDR = 8  # header rows (geometry); feature rows start here
 OBJ0, N_OBJ = HDR + 3, 16  # the obj channels among the feature columns
@@ -167,6 +171,27 @@ def _quad_power(Gc, tile, bx, by):
     return p + (-0.5 * C) * (v * v)
 
 
+def _alpha_gate(Gc, px, py, tile, ewa_impl, alpha_min):
+    """(alpha, gate) [NT, PIX, k] of the rows Gc [NT, k, ≥6] in the loop's
+    float32 arithmetic: the longhand exponent, or under "quad" the six
+    monomials with power ∈ (0, 0.01] counted as 0."""
+    if ewa_impl == "quad":
+        p = _quad_power(Gc, tile, px[:, 0], py[:, 0])
+        alpha = torch.clamp(Gc[..., 5][:, None, :] * torch.exp(torch.clamp(p, max=0.0)),
+                            max=0.99)
+        power = torch.where(p <= 0.01, torch.clamp(p, max=0.0), p)
+    else:
+        power = ewa_power(Gc, px, py)[2]
+        alpha = torch.clamp(Gc[..., 5][:, None, :] * torch.exp(power), max=0.99)
+    return alpha, (power <= 0.0) & (alpha >= alpha_min)
+
+
+def _gather(G, r):
+    """Rows G[r] for r [NT, k] (−1 = empty: a zero row)."""
+    return torch.where((r >= 0)[..., None], G[torch.clamp(r, min=0)],
+                       torch.zeros((), device=G.device))
+
+
 def _composite_rows_plain(G_s, rows, count_max: int, tile, tiles_x, alpha_min,
                           t_min, chunk, tile_offset, ewa_impl="vpu",
                           feat_prec="highest", bf16_obj=False):
@@ -177,27 +202,16 @@ def _composite_rows_plain(G_s, rows, count_max: int, tile, tiles_x, alpha_min,
     kernel's float32 operations in its order: both give the same bits in
     every precision tier. Returns (acc [NT, tile², 24], T [NT, tile²])."""
     NT, K = rows.shape
-    G = G_s[:, :KERNEL_CH]
-    if bf16_obj:
-        G = torch.cat([G[:, :OBJ0], unpack_obj_bf16(G_s), G[:, OBJ0 + N_OBJ:]], dim=1)
+    G = _loop_rows(G_s, bf16_obj)
     px, py = tile_pixel_coords(NT, tiles_x, tile, tile_offset, G.device)
-    bx, by = px[:, 0], py[:, 0]
     T = torch.ones((NT, tile * tile), dtype=torch.float32, device=G.device)
     acc = torch.zeros((NT, tile * tile, KERNEL_CH - HDR), dtype=torch.float32,
                       device=G.device)
     zero = torch.zeros((), device=G.device)
     for c0 in range(0, min(K, count_max), chunk):
         r = rows[:, c0:min(c0 + chunk, count_max)]  # later entries are all empty
-        Gc = torch.where((r >= 0)[..., None], G[torch.clamp(r, min=0)], zero)
-        if ewa_impl == "quad":
-            p = _quad_power(Gc, tile, bx, by)
-            alpha = torch.clamp(Gc[..., 5][:, None, :] * torch.exp(torch.clamp(p, max=0.0)),
-                                max=0.99)
-            power = torch.where(p <= 0.01, torch.clamp(p, max=0.0), p)
-        else:
-            power = ewa_power(Gc, px, py)[2]
-            alpha = torch.clamp(Gc[..., 5][:, None, :] * torch.exp(power), max=0.99)
-        gate = (power <= 0.0) & (alpha >= alpha_min)
+        Gc = _gather(G, r)
+        alpha, gate = _alpha_gate(Gc, px, py, tile, ewa_impl, alpha_min)
         om = 1.0 - alpha
         cut = torch.zeros_like(gate[..., 0])  # T·(1−α) < t_min: cut to the chunk's end
         for k in range(r.shape[1]):
@@ -209,6 +223,71 @@ def _composite_rows_plain(G_s, rows, count_max: int, tile, tiles_x, alpha_min,
             acc = acc + _feat_term(w, Gc[:, k, HDR:], feat_prec, bf16_obj)
             T = torch.where(ok, test, T)
     return acc, T
+
+
+def _loop_rows(G_s, bf16_obj=False):
+    """The 32 columns the loop reads: header and features, under `bf16_obj`
+    the obj channels from their packed bf16 columns."""
+    G = G_s[:, :KERNEL_CH]
+    if bf16_obj:
+        G = torch.cat([G[:, :OBJ0], unpack_obj_bf16(G_s), G[:, OBJ0 + N_OBJ:]], dim=1)
+    return G
+
+
+def strip_live(G_s, rows, counts, tiles_x, tile_offset=0, alpha_min=1.0 / 255.0,
+               ewa_impl="vpu"):
+    """The windowed loop's per-warp strip cull in plain PyTorch: bool
+    [NT, 8, K], true where the warp of strip s (pixel rows 2s, 2s+1 of a
+    16×16 tile) walks entry k of tile t, whose global row is rows[t, k]
+    (−1: a zero row). The test of `composite.strip_live` in the kernel's
+    float32 operations, and an entry whose opacity is below `alpha_min`
+    (an empty slot among them) dropped; under `ewa_impl="quad"` the margin
+    is relative to the magnitude of the six monomials the loop sums
+    (`csrc/windowed.cuh`, `strip_keeps`): 0.5·(|a|X² + 2|b|XY + |c|Y²) with
+    X = |mx − bx| + 15, Y = |my − by| + 15 about the tile origin (bx, by)."""
+    NT, K = rows.shape
+    tile, dev = 16, G_s.device
+    below = torch.arange(K, device=dev)[None, :] < counts[:, None]
+    hdr = _gather(G_s[:, :6], torch.where(below, rows, -1))
+    ids = torch.arange(NT, device=dev) + int(tile_offset)
+    bx = ((ids % tiles_x) * tile).to(torch.float32)[:, None, None]
+    by = ((ids // tiles_x) * tile).to(torch.float32)[:, None, None]
+    rows_per = STRIP_PIXELS // tile
+    sy = by + rows_per * torch.arange(tile // rows_per, device=dev).to(torch.float32)[:, None]
+    mx, my, a, b, c, op = (hdr[..., i][:, None, :] for i in range(6))
+    x0, x1 = bx - mx, (bx + (tile - 1.0)) - mx
+    y0, y1 = sy - my, (sy + (rows_per - 1.0)) - my
+    qmin = box_qmin(a, b, c, x0, x1, y0, y1)
+    if ewa_impl == "quad":
+        X = (mx - bx).abs() + (tile - 1.0)
+        Y = (my - by).abs() + (tile - 1.0)
+    else:
+        X = torch.maximum(x0.abs(), x1.abs())
+        Y = torch.maximum(y0.abs(), y1.abs())
+    mag = a.abs() * X * X + 2.0 * b.abs() * X * Y + c.abs() * Y * Y
+    level = gate_level(op, alpha_min)
+    bound = level + (CULL_REL * (mag + level) + CULL_ABS)
+    drop = ((a > 0.0) & (c > 0.0) & (qmin > bound)) | (op < alpha_min)
+    return ~drop & below[:, None, :]
+
+
+def strip_gated(G_s, rows, counts, tiles_x, tile_offset=0, alpha_min=1.0 / 255.0,
+                ewa_impl="vpu", chunk=64):
+    """What `strip_live` must never drop, from the loop's own gate: bool
+    [NT, 8, K], true where some pixel of strip s of tile t passes the alpha
+    gate of entry k below the tile's count (`_alpha_gate`, `chunk` entries
+    at a time)."""
+    NT, K = rows.shape
+    tile = 16
+    G = G_s[:, :6]
+    px, py = tile_pixel_coords(NT, tiles_x, tile, tile_offset, G.device)
+    below = torch.arange(K, device=G.device)[None, :] < counts[:, None]
+    out = []
+    for c0 in range(0, K, chunk):
+        r = torch.where(below[:, c0:c0 + chunk], rows[:, c0:c0 + chunk], -1)
+        gate = _alpha_gate(_gather(G, r), px, py, tile, ewa_impl, alpha_min)[1]
+        out.append(gate.reshape(NT, tile * tile // STRIP_PIXELS, STRIP_PIXELS, -1).any(dim=2))
+    return torch.cat(out, dim=-1)
 
 
 def composite_windowed_plain(G_s, table_local, counts, bases, dests, nblks, tile,
@@ -414,6 +493,44 @@ def window_keys_plain(G_s, bases, dests, nblks, sstarts, sends, tile, tiles_x,
     return torch.where(ok, key, torch.full_like(key, KEY_INVALID))
 
 
+def sorted_ids_plain(keys, k_tile: int):
+    """Keys [NT, S] of the in-kernel sort → (the first `k_tile` window-local
+    ids in key order [NT, k_tile], −1 past the valid ones; nv [NT] int32)."""
+    NT, S = keys.shape
+    nv = (keys != KEY_INVALID).sum(dim=1).to(torch.int32)
+    order = torch.sort(keys, dim=1).values[:, :k_tile]
+    if S < k_tile:
+        order = torch.cat([order, torch.full((NT, k_tile - S), KEY_INVALID,
+                                             dtype=order.dtype, device=order.device)], 1)
+    return torch.where(order != KEY_INVALID, order & IDX_MASK, torch.full_like(order, -1)), nv
+
+
+def compacted_sort_plain(keys, k_tile: int, appended=None):
+    """`sorted_ids_plain` as the kernel's key phase computes it, for the
+    tests: each tile's valid keys appended densely (in the order `appended`
+    [NT, S], a permutation of the slots per tile, gives; the kernel's warps
+    append in an order their atomics choose), padded with KEY_INVALID to the
+    next power of two ≥ nv and sorted by the kernel's bitonic network
+    (`sort.sort_blocks_network_plain`); the first min(nv, k_tile) keys are
+    the ids."""
+    NT, S = keys.shape
+    ids = torch.full((NT, k_tile), -1, dtype=torch.int32, device=keys.device)
+    nv = torch.zeros(NT, dtype=torch.int32, device=keys.device)
+    for t in range(NT):
+        row = keys[t] if appended is None else keys[t, appended[t]]
+        valid = row[row != KEY_INVALID]
+        n = 1
+        while n < valid.numel():
+            n *= 2
+        padded = torch.full((n,), KEY_INVALID, dtype=keys.dtype, device=keys.device)
+        padded[:valid.numel()] = valid
+        got = sort_blocks_network_plain(padded.reshape(1, 1, n))[0, 0]
+        m = min(valid.numel(), k_tile)
+        ids[t, :m] = got[:m] & IDX_MASK
+        nv[t] = valid.numel()
+    return ids, nv
+
+
 def composite_windowed_sorted_plain(G_s, bases, dests, nblks, sstarts, sends, tile,
                                     tiles_x, alpha_min=1.0 / 255.0, t_min=1e-4,
                                     chunk=512, n_span=4, w_blocks=12, k_tile=512,
@@ -421,15 +538,9 @@ def composite_windowed_sorted_plain(G_s, bases, dests, nblks, sstarts, sends, ti
     """Plain PyTorch version of `composite_windowed_sorted`."""
     keys = window_keys_plain(G_s, bases, dests, nblks, sstarts, sends, tile, tiles_x,
                              alpha_min, n_span, w_blocks, tile_offset)
-    NT, S = keys.shape
-    nv = (keys != KEY_INVALID).sum(dim=1).to(torch.int32)
-    order = torch.sort(keys, dim=1).values[:, :k_tile]
-    if S < k_tile:
-        order = torch.cat([order, torch.full((NT, k_tile - S), KEY_INVALID,
-                                             dtype=order.dtype, device=order.device)], 1)
-    ids = torch.where(order != KEY_INVALID, order & IDX_MASK, torch.full_like(order, -1))
+    ids, nv = sorted_ids_plain(keys, k_tile)
     rows = window_rows(ids, bases, dests, nblks, n_span)
-    count_max = min(int(nv.max()), k_tile) if NT else 0
+    count_max = min(int(nv.max()), k_tile) if keys.shape[0] else 0
     acc, T = _composite_rows_plain(G_s, rows, count_max, tile, tiles_x, alpha_min,
                                    t_min, chunk, tile_offset, ewa_impl, feat_prec)
     return acc, T, nv

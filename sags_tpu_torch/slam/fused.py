@@ -175,12 +175,19 @@ class FusedFrontend:
         return state, track, T
 
     def track_add(self, state, track, scan, smask, points, colors, pmask,
-                  pose_in, *, first: bool):
-        """Track → grow without training (no replay keyframe yet), with an
-        idle metrics row."""
+                  pose_in, *, first: bool, write_row: bool):
+        """Track → grow without training: the first half of the semantics
+        split (the host makes the frame's objects at the returned camera,
+        then `train_only` finishes the frame) and the frame with no replay
+        keyframe yet. `write_row` writes the frame's idle metrics row: True
+        when no `train_only` follows, whose row would count the frame twice.
+        Returns (state, track, T, cam)."""
         state, track, T = self._track_add(state, track, scan, smask, points,
                                           colors, pmask, pose_in, first)
-        return state, self._idle_metrics(state, track), T
+        cam = _camera_at(T, self.cfg, self.H, self.W)
+        if write_row:
+            track = self._idle_metrics(state, track)
+        return state, track, T, cam
 
     def train_only(self, state, track, cam, image, objects):
         """Map optimization with a metrics row (the post-training loop)."""

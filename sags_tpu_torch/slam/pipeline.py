@@ -299,7 +299,8 @@ class SLAMPipeline:
             self.state, self.track, T = self._fused.track_add_train_stored(
                 *common, kf.camera, kf.image, kf.objects)
         else:
-            self.state, self.track, T = self._fused.track_add(*common, first=first)
+            self.state, self.track, T, _ = self._fused.track_add(*common, first=first,
+                                                                write_row=True)
         self._fused_first = False
         self._host_mi += 1
         self._snapshot()

@@ -377,6 +377,40 @@ def test_windowed_variants_match_plain(device, ewa, prec, bf16):
     assert not torch.equal(acc[..., changed], acc_f[..., changed])
 
 
+@pytest.mark.parametrize("aspect", [(4.0, 8.0), (20.0, 60.0)])
+def test_windowed_kernels_on_thin_splats(device, aspect):
+    """Both windowed compositors where their strip cull is hardest: long
+    thin splats that cross the image from centres outside it, in both EWA
+    forms and the three feature tiers: acc and T bitwise equal to the plain
+    versions, nv exact; and `windowed.strip_live` dropping no strip in
+    which a pixel passes the loop's gate."""
+    import chip_smoke
+
+    K = 256
+    G, table, counts, _ = chip_smoke.thin_scene(device, aspect, n=1024, K=K, width=W,
+                                                height=H)
+    host, ksort = chip_smoke.thin_windowed(G, table, TILES_X, TILES_Y, span_blocks=2)
+    host = (host[0], host[1], counts, *host[2:])
+    assert int(counts.sum()) > 0
+    hkw = dict(alpha_min=1.0 / 255.0, t_min=1e-4, chunk=128)
+    for ewa in ("vpu", "quad"):
+        for prec in ("highest", "high", "default"):
+            kw = dict(hkw, ewa_impl=ewa, feat_prec=prec)
+            acc, T = windowed.composite_windowed(*host, 16, TILES_X, n_span=1, **kw)
+            acc_p, T_p = windowed.composite_windowed_plain(*host, 16, TILES_X, n_span=1, **kw)
+            assert torch.equal(acc, acc_p) and torch.equal(T, T_p), (ewa, prec)
+            skw = dict(kw, n_span=4, w_blocks=8, k_tile=K)
+            acc, T, nv = windowed.composite_windowed_sorted(*ksort, 16, TILES_X, **skw)
+            acc_p, T_p, nv_p = windowed.composite_windowed_sorted_plain(*ksort, 16, TILES_X,
+                                                                        **skw)
+            assert torch.equal(nv, nv_p) and int(nv.sum()) > 0, (ewa, prec)
+            assert torch.equal(acc, acc_p) and torch.equal(T, T_p), (ewa, prec)
+        live = windowed.strip_live(host[0], table.long(), counts, TILES_X, 0, 1.0 / 255.0, ewa)
+        gated = windowed.strip_gated(host[0], table.long(), counts, TILES_X, 0, 1.0 / 255.0,
+                                     ewa)
+        assert not bool((gated & ~live).any())
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 def test_windowed_gradients_on_the_card_match_the_cpu(device, bf16):
     """The windowed rasterizer's gradients of all six inputs (slice store

@@ -19,7 +19,7 @@ from sags_tpu.ops import pallas_sort as jps
 from sags_tpu.ops import rasterize as jrz
 from sags_tpu_torch.core import config as tconf
 from sags_tpu_torch.core.camera import make_camera
-from sags_tpu_torch.ops import binning, composite, sort
+from sags_tpu_torch.ops import binning, composite, sort, windowed
 from sags_tpu_torch.ops import rasterize as trz
 
 W, H = 64, 48
@@ -336,6 +336,188 @@ def test_strip_walk_composites_like_the_plain_loop(K, chunk):
                                                  alpha_min=float(ALPHA_MIN), chunk=chunk)
     np.testing.assert_allclose(acc_m, acc_p.numpy(), atol=1e-5)
     np.testing.assert_allclose(T_m, T_p.numpy(), atol=1e-5)
+
+
+# Two spans of the windowed loop's window: rows 0..255 are window ids 0..255,
+# rows 256..383 window ids 384..511 (block 2 of the window is empty)
+SPAN_BASES, SPAN_DESTS, SPAN_NBLKS = (0, 2), (0, 3), (2, 1)
+
+
+def _windowed_scene(case, bf16=False):
+    """`_strip_scene(case)` as the windowed loop takes it: the anchor-sorted
+    store G_s [384, 48] (columns 40..47 the obj channels packed as bf16
+    pairs), each tile's work list in window ids through the two-span plan
+    above, the plan, and the global rows the list resolves to."""
+    G, table, counts = _strip_scene(case)
+    NT, K = table.shape
+    G_s = torch.zeros((128 * 3, windowed.BF16_CH))
+    G_s[:G.shape[0], :32] = G
+    if bf16:
+        bits = G[:, windowed.OBJ0:windowed.OBJ0 + windowed.N_OBJ].to(torch.bfloat16) \
+            .view(torch.int16).to(torch.int32) & 0xFFFF
+        packed = bits[:, 0::2] | (bits[:, 1::2] << 16)
+        G_s[:G.shape[0], windowed.COL_OBJ_BF16:] = packed.view(torch.float32)
+    tl = torch.where(table < 256, table, table - 256 + 384)
+    tl = torch.where(table >= 0, tl, -1).reshape(NT, K // 128, 128).to(torch.int32)
+    plan = [torch.tensor(x, dtype=torch.int32).repeat(NT)
+            for x in (SPAN_BASES, SPAN_DESTS, SPAN_NBLKS)]
+    rows = windowed.window_rows(tl, *plan, 2)
+    assert torch.equal(rows, table.long())
+    return G_s, tl, counts, plan, rows
+
+
+@pytest.mark.parametrize("ewa", ["vpu", "quad"])
+@pytest.mark.parametrize("case", STRIP_CASES)
+def test_windowed_strip_live_never_drops_a_gated_entry(case, ewa):
+    """The windowed loop's strip cull (`windowed.strip_live`) keeps every
+    (strip, entry) in which some pixel passes the loop's own alpha gate, in
+    either EWA form: under "quad" the exponent is a sum of six monomials
+    about the tile origin, which cancel for the thin splats and those
+    100-250 px outside the image, and the margin grows with them. Nothing
+    past a tile's count is walked; on small splats most strips drop."""
+    G_s, _, counts, _, rows = _windowed_scene(case)
+    for toff, n in ((0, 12), (3, 9)):
+        live = windowed.strip_live(G_s, rows[:n], counts[:n], TILES_X, toff,
+                                   float(ALPHA_MIN), ewa)
+        gated = windowed.strip_gated(G_s, rows[:n], counts[:n], TILES_X, toff,
+                                     float(ALPHA_MIN), ewa)
+        assert int((gated & ~live).sum()) == 0
+        assert gated.any()
+        below = torch.arange(rows.shape[1])[None, None, :] < counts[:n, None, None]
+        assert not (live & ~below).any()
+        share = 1.0 - float(live.sum()) / float(below.expand_as(live).sum())
+        assert share > (0.5 if case in ("small", "sharp") else 0.0), share
+
+
+def _bf16_np(x):
+    """float32 → bfloat16 → float32 in numpy, round to nearest even."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    r = ((u + np.uint32(0x7FFF) + ((u >> 16) & 1)) & np.uint32(0xFFFF0000)).astype(np.uint32)
+    return np.where((u & 0x7FFFFFFF) > 0x7F800000, np.uint32(0x7FC00000), r).view(np.float32)
+
+
+def _windowed_walk_model(G_s, rows, counts, live, chunk, ewa, prec, bf16,
+                         alpha_min=ALPHA_MIN, t_min=np.float32(1e-4)):
+    """The windowed loop of `csrc/windowed.cuh` in numpy: each strip walks
+    only the entries its cull kept, clears the chunk's cut at the first
+    walked entry of a new chunk, and adds each composited entry's w·f in the
+    tier's rounding (`windowed._feat_term`). The gate is the loop's
+    (`windowed._alpha_gate`). Returns (acc [NT, 256, 24], T [NT, 256])."""
+    NT, K = rows.shape
+    G = windowed._loop_rows(G_s, bf16)
+    px, py = composite.tile_pixel_coords(NT, TILES_X, 16)
+    Gc = windowed._gather(G, rows)
+    alpha, gate = (x.numpy() for x in windowed._alpha_gate(Gc, px, py, 16, ewa,
+                                                          float(alpha_min)))
+    feats, counts, live = Gc[..., 8:].numpy(), counts.numpy(), live.numpy()
+    obj = slice(windowed.OBJ0 - 8, windowed.OBJ0 - 8 + windowed.N_OBJ)
+    acc = np.zeros((NT, 256, 24), np.float32)
+    T = np.ones((NT, 256), np.float32)
+    for t in range(NT):
+        for s in range(8):
+            p = slice(32 * s, 32 * s + 32)
+            cut = np.zeros(32, bool)
+            pending = False
+            for k in range(min(int(counts[t]), K)):
+                pending |= k % chunk == 0
+                if not live[t, s, k]:
+                    continue
+                if pending:
+                    cut[:], pending = False, False
+                a = alpha[t, p, k]
+                test = T[t, p] * (np.float32(1) - a)
+                on = gate[t, p, k] & ~cut
+                ok = on & (test >= t_min)
+                cut |= on & ~ok
+                w = np.where(ok, a * T[t, p], np.float32(0))[:, None]
+                f = feats[t, k][None, :]
+                if prec == "highest" and not bf16:
+                    term = w * f
+                else:
+                    wh = _bf16_np(w)
+                    if prec == "default":
+                        term = wh * _bf16_np(f)
+                    elif prec == "high":
+                        fh = _bf16_np(f)
+                        term = wh * fh + wh * _bf16_np(f - fh) + _bf16_np(w - wh) * fh
+                    else:
+                        term = w * f
+                    if bf16:
+                        term[:, obj] = wh * f[:, obj]
+                acc[t, p] += term
+                T[t, p] = np.where(ok, test, T[t, p])
+    return acc, T
+
+
+@pytest.mark.parametrize("ewa,prec,bf16,chunk", [
+    ("vpu", "highest", False, 32), ("vpu", "highest", False, 48),
+    ("vpu", "highest", False, 512), ("vpu", "high", False, 48),
+    ("vpu", "default", False, 32), ("vpu", "highest", True, 512),
+    ("quad", "highest", False, 48), ("quad", "default", True, 32)])
+def test_windowed_strip_walk_composites_like_the_plain_loop(ewa, prec, bf16, chunk):
+    """Walking only the entries a strip's cull kept, with the chunk's cut
+    cleared at the first walked entry of a new chunk, composites bitwise
+    what `_composite_rows_plain` composites from every entry: in every
+    `feat_prec` tier, under `bf16_obj`, in both EWA forms, for chunks of
+    one group, of one and a half and longer than the list; on a scene with
+    wide splats far outside the image and sharp ones, through a two-span
+    plan."""
+    G_s, tl, counts, plan, rows = _windowed_scene("mixed", bf16)
+    live = windowed.strip_live(G_s, rows, counts, TILES_X, 0, float(ALPHA_MIN), ewa)
+    assert 0 < int(live.sum()) < int(counts.sum()) * 8
+    acc_m, T_m = _windowed_walk_model(G_s, rows, counts, live, chunk, ewa, prec, bf16)
+    acc_p, T_p = windowed.composite_windowed_plain(
+        G_s, tl, counts, *plan, 16, TILES_X, alpha_min=float(ALPHA_MIN), chunk=chunk,
+        n_span=2, ewa_impl=ewa, feat_prec=prec, bf16_obj=bf16)
+    assert float(T_p.min()) < 0.5  # the scene composites
+    np.testing.assert_array_equal(acc_m, acc_p.numpy())
+    np.testing.assert_array_equal(T_m, T_p.numpy())
+
+
+def _keys_with(nv, rng, NT=3, S=2048):
+    """Window keys [NT, S] with exactly nv valid ones per tile: (dq << 11) |
+    slot, dq drawn with ties."""
+    keys = np.full((NT, S), windowed.KEY_INVALID, np.int32)
+    for t in range(NT):
+        slots = rng.choice(S, nv, replace=False)
+        keys[t, slots] = (rng.integers(0, 1 << 12, nv) << windowed.IDX_BITS) | slots
+    return torch.as_tensor(keys)
+
+
+@pytest.mark.parametrize("nv", [0, 1, 5, 512, 1000, 2048])
+def test_compacted_sort_gives_the_full_sorts_ids(nv):
+    """The kernel sort's key phase sorts only its valid keys, appended in
+    whatever order the warps' atomics give and padded to the next power of
+    two: the same ids (the first min(nv, k_tile) in key order, −1 after)
+    and the same nv as sorting the whole window, from no valid key to all
+    2048 slots, with k_tile = 512."""
+    rng = np.random.default_rng(nv)
+    keys = _keys_with(nv, rng)
+    appended = torch.as_tensor(np.stack([rng.permutation(keys.shape[1]) for _ in keys]))
+    ids, nv_m = windowed.compacted_sort_plain(keys, 512, appended)
+    want, nv_p = windowed.sorted_ids_plain(keys, 512)
+    assert torch.equal(nv_m, nv_p) and int(nv_p[0]) == nv
+    assert torch.equal(ids, want.to(torch.int32))
+
+
+def test_compacted_sort_on_a_prepared_window():
+    """The same on the keys `window_keys_plain` makes for a binned scene (16
+    window blocks, four spans): the ids `composite_windowed_sorted_plain`
+    composites."""
+    _, pt, _, _, objs = _both(0, 256, 32)
+    cfg = tconf.RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=256,
+                                window_blocks=16, windowed_mid_frac=1.0,
+                                windowed_big_frac=1.0, windowed_big_capacity=64)
+    G_s, b, d, n, ss, se, *_ = trz._prepare_windowed(pt, torch.as_tensor(objs), TILES_X,
+                                                     TILES_Y, cfg, build_table=False)
+    keys = windowed.window_keys_plain(G_s, b, d, n, ss, se, 16, TILES_X, cfg.alpha_min, 4, 16)
+    rng = np.random.default_rng(9)
+    appended = torch.as_tensor(np.stack([rng.permutation(keys.shape[1]) for _ in keys]))
+    for k_tile in (8, 256):
+        ids, nv = windowed.compacted_sort_plain(keys, k_tile, appended)
+        want, nv_p = windowed.sorted_ids_plain(keys, k_tile)
+        assert torch.equal(nv, nv_p) and int(nv.max()) > 8
+        assert torch.equal(ids, want.to(torch.int32))
 
 
 SORT_SHAPES = [(3, 1, 2), (3, 1, 4), (3, 1, 8), (2, 1, 16), (2, 1, 64), (2, 1, 128),

@@ -249,20 +249,80 @@ def test_estimate_covariances_match_jax(reg):
     assert np.quantile(dots, 0.99) > 1 - 1e-4
 
 
-def test_gicp_align_matches_jax():
+@pytest.mark.parametrize("optimizer", ["lm", "gn"])
+def test_gicp_align_matches_jax(optimizer):
     rng = np.random.default_rng(2)
     tgt = _scan(rng)
     ang = np.array([0.02, -0.03, 0.015], np.float32)
     Rt = np.asarray(jax_gicp.so3_exp(jnp.asarray(ang)))
     src = ((tgt - np.array([0.05, -0.02, 0.08], np.float32)) @ Rt).astype(np.float32)
     mask = np.ones(len(src), bool)
-    cfg = GICPConfig(knn_max_distance=2.0)
+    cfg = GICPConfig(knn_max_distance=2.0, optimizer=optimizer)
     rj = jax_gicp.gicp_align(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask),
                              jnp.asarray(mask), jnp.eye(4), cfg)
     rt = t_gicp.gicp_align(torch.as_tensor(src), torch.as_tensor(tgt),
                            torch.as_tensor(mask), torch.as_tensor(mask), torch.eye(4),
-                           tconf.GICPConfig(knn_max_distance=2.0))
-    # same LM path: iteration counts equal, pose within 1e-5 (float32 solves)
+                           tconf.GICPConfig(knn_max_distance=2.0, optimizer=optimizer))
+    # same optimizer path: iteration counts equal, pose within 1e-5 (float32 solves)
     assert rt.iterations == int(rj.iterations)
     assert rt.converged == bool(rj.converged)
+    assert rt.lm_iterations == 0 if optimizer == "gn" else rt.lm_iterations > 0
     np.testing.assert_allclose(rt.T.numpy(), np.asarray(rj.T), atol=1e-5)
+
+
+def test_lsq_align_rejects_an_unknown_optimizer():
+    with pytest.raises(ValueError):
+        t_gicp.lsq_align(None, None, torch.eye(4), tconf.GICPConfig(optimizer="dogleg"))
+
+
+def test_track_add_write_row_and_camera_match_jax():
+    """`FusedFrontend.track_add` on a frame after the first: the pose and
+    the camera at it as the JAX package's program gives them (1e-5, the
+    GICP test's bar), and one idle metrics row with `write_row=True`, none
+    with `write_row=False` (the semantics split's `train_only` writes it)."""
+    from sags_tpu.slam import fused as jax_fused
+    from sags_tpu_torch.slam import fused as t_fused
+
+    rng = np.random.default_rng(6)
+    jcfg, tcfg = configs()
+    gkw = dict(knn_max_distance=2.0)
+    jcfg = jcfg.replace(gicp=GICPConfig(**gkw))
+    tcfg = tcfg.replace(gicp=tconf.GICPConfig(**gkw))
+    prev = _scan(rng, 160)
+    ang = np.array([0.01, 0.02, -0.01], np.float32)
+    Rt = np.asarray(jax_gicp.so3_exp(jnp.asarray(ang)))
+    scan = ((prev - np.array([0.03, 0.01, -0.04], np.float32)) @ Rt).astype(np.float32)
+    mask = np.ones(len(scan), bool)
+    cols = rng.uniform(0.05, 1.0, (len(scan), 3)).astype(np.float32)
+    pose_in = np.eye(4, dtype=np.float32)
+    T0 = np.eye(4, dtype=np.float32)
+    T0[:3, 3] = [0.2, -0.1, 0.3]
+
+    s = jax_step.init_state(jcfg, jax.random.key(0))
+    covs = jax_gicp.estimate_covariances(jnp.asarray(prev), jnp.asarray(mask), 10, 2.0,
+                                         jcfg.gicp.regularization).covs
+    jt = jax_fused.init_track_state(len(scan), 4)._replace(
+        T=jnp.asarray(T0), prev_scan=jnp.asarray(prev), prev_mask=jnp.asarray(mask),
+        prev_covs=covs)
+    args = tuple(map(jnp.asarray, (scan, mask, scan, cols, mask, pose_in)))
+    fe_j = jax_fused.FusedFrontend(jcfg, H, W, sensor_frame=True)
+    _, _, T_j, cam_j = fe_j.track_add(False, False, False)(s, jt, *args)
+
+    p = interop.state_from_numpy(jax_state_to_numpy(s), "cpu")
+    tt = t_fused.init_track_state(len(scan), 4, "cpu")._replace(
+        T=torch.as_tensor(T0), prev_scan=torch.as_tensor(prev),
+        prev_mask=torch.as_tensor(mask), prev_covs=torch.as_tensor(np.array(covs)))
+    targs = tuple(map(torch.as_tensor, (scan, mask, scan, cols, mask, pose_in)))
+    fe_t = t_fused.FusedFrontend(tcfg, H, W, sensor_frame=True)
+    for write_row in (False, True):
+        _, track, T_t, cam_t = fe_t.track_add(p, tt, *targs, first=False,
+                                              write_row=write_row)
+        assert track.mi == tt.mi + int(write_row)
+        assert torch.equal(track.metrics, tt.metrics) != write_row
+        np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=1e-5)
+        assert (cam_t.width, cam_t.height) == (cam_j.width, cam_j.height)
+        np.testing.assert_allclose([cam_t.fovx, cam_t.fovy], [cam_j.fovx, cam_j.fovy],
+                                   rtol=1e-6)
+        for f in ("world_view", "full_proj", "cam_center"):
+            np.testing.assert_allclose(getattr(cam_t, f).numpy(), np.asarray(getattr(cam_j, f)),
+                                       atol=1e-5, err_msg=f)
