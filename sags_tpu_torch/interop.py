@@ -9,6 +9,11 @@ The tree format (what a caller exports from a JAX `SLAMState`):
      "step": int}
 
 Param names are `mapping.gaussian_map.PARAM_FIELDS` and ("weight", "bias").
+
+`sam_params_from_numpy` carries a flax SAM parameter tree (the JAX
+package's `SAM.params`, or a weight pickle read by `models.sam.read_params`)
+into the `state_dict` of the port's `models.sam.SAM`.
+
 This module imports no JAX: the export from JAX arrays is the caller's.
 """
 
@@ -73,3 +78,72 @@ def state_to_numpy(state: SLAMState) -> dict:
         "cls_opt": _adam_to(state.cls_opt_state, _CLS_FIELDS),
         "step": int(state.step),
     }
+
+
+def _dense(p: dict, prefix: str) -> dict:
+    return {f"{prefix}.weight": np.asarray(p["kernel"]).T, f"{prefix}.bias": np.asarray(p["bias"])}
+
+
+def _layer_norm(p: dict, prefix: str) -> dict:
+    return {f"{prefix}.weight": np.asarray(p["scale"]), f"{prefix}.bias": np.asarray(p["bias"])}
+
+
+def _attention(p: dict, prefix: str) -> dict:
+    """flax `MultiHeadDotProductAttention`: query/key/value kernels
+    [C, heads, head_dim] with biases [heads, head_dim], out kernel
+    [heads, head_dim, C]; heads major in the port's `Linear` rows."""
+    out = {}
+    for name in ("query", "key", "value"):
+        k = np.asarray(p[name]["kernel"])
+        out[f"{prefix}.{name}.weight"] = k.reshape(k.shape[0], -1).T
+        out[f"{prefix}.{name}.bias"] = np.asarray(p[name]["bias"]).reshape(-1)
+    k = np.asarray(p["out"]["kernel"])
+    out[f"{prefix}.out.weight"] = k.reshape(-1, k.shape[-1]).T
+    out[f"{prefix}.out.bias"] = np.asarray(p["out"]["bias"])
+    return out
+
+
+def _conv_transpose(p: dict, prefix: str) -> dict:
+    """flax `ConvTranspose` (HWIO, no kernel transpose) as
+    `nn.ConvTranspose2d`: the spatial axes flipped, then [in, out, kh, kw]."""
+    k = np.asarray(p["kernel"])[::-1, ::-1]
+    return {f"{prefix}.weight": np.ascontiguousarray(k.transpose(2, 3, 0, 1)),
+            f"{prefix}.bias": np.asarray(p["bias"])}
+
+
+def sam_params_from_numpy(params) -> dict:
+    """The port's `SAM.state_dict()` (numpy values) from a flax parameter
+    tree `(encoder, prompt, decoder)`, each `{"params": {...}}` as flax
+    keeps it (`sags_tpu/models/sam.py:189-214`)."""
+    enc, pr, dec = (t["params"] for t in params)
+    sd = {"encoder.patch.weight": np.asarray(enc["patch"]["kernel"]).transpose(3, 2, 0, 1),
+          "encoder.patch.bias": np.asarray(enc["patch"]["bias"]),
+          "encoder.pos_embed": np.asarray(enc["pos_embed"])}
+    depth = sum(k.startswith("MultiHeadDotProductAttention_") for k in enc)
+    for i in range(depth):
+        b = f"encoder.blocks.{i}"
+        sd.update(_layer_norm(enc[f"LayerNorm_{2 * i}"], f"{b}.ln1"))
+        sd.update(_attention(enc[f"MultiHeadDotProductAttention_{i}"], f"{b}.attn"))
+        sd.update(_layer_norm(enc[f"LayerNorm_{2 * i + 1}"], f"{b}.ln2"))
+        sd.update(_dense(enc[f"Dense_{2 * i}"], f"{b}.fc1"))
+        sd.update(_dense(enc[f"Dense_{2 * i + 1}"], f"{b}.fc2"))
+    sd.update(_layer_norm(enc[f"LayerNorm_{2 * depth}"], "encoder.ln_out"))
+    sd["prompt_encoder.pe_gaussian"] = np.asarray(pr["pe_gaussian"])
+    sd["prompt_encoder.corner_embed"] = np.asarray(pr["corner_embed"])
+    sd["mask_decoder.mask_tokens"] = np.asarray(dec["mask_tokens"])
+    n_blocks = sum(k.startswith("TwoWayBlock_") for k in dec)
+    for j in range(n_blocks):
+        p, b = dec[f"TwoWayBlock_{j}"], f"mask_decoder.blocks.{j}"
+        for name, flax_name in (("self_attn", 0), ("cross_t2i", 1), ("cross_i2t", 2)):
+            sd.update(_attention(p[f"MultiHeadDotProductAttention_{flax_name}"], f"{b}.{name}"))
+        for i in range(4):
+            sd.update(_layer_norm(p[f"LayerNorm_{i}"], f"{b}.ln{i}"))
+        sd.update(_dense(p["Dense_0"], f"{b}.fc1"))
+        sd.update(_dense(p["Dense_1"], f"{b}.fc2"))
+    sd.update(_conv_transpose(dec["ConvTranspose_0"], "mask_decoder.up1"))
+    sd.update(_layer_norm(dec["LayerNorm_0"], "mask_decoder.up_ln"))
+    sd.update(_conv_transpose(dec["ConvTranspose_1"], "mask_decoder.up2"))
+    # flax names the hypernetwork's outer Dense (C -> C/8) first
+    sd.update(_dense(dec["Dense_0"], "mask_decoder.hyper2"))
+    sd.update(_dense(dec["Dense_1"], "mask_decoder.hyper1"))
+    return {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in sd.items()}

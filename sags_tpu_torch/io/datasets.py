@@ -128,6 +128,25 @@ class SyntheticDataset:
                             colors=rgb, windowed=False)
         return out.color.cpu().numpy(), out.depth[0].cpu().numpy()
 
+    def gt_objects(self, i: int) -> np.ndarray:
+        """Ground-truth instance mask [H,W] int32 (0 = background): the world
+        rendered with one-hot instance features (`sags_tpu/io/datasets.py:
+        435-453`), the argmax of the object channels where alpha > 0.5."""
+        from sags_tpu_torch.ops.rasterize import rasterize
+
+        xyz, opac, scales, quats, rgb = self._world()
+        n = len(self.world_xyz)
+        onehot = np.zeros((n, 16), np.float32)
+        onehot[np.arange(n), self.world_instance % 16] = 1.0
+        with torch.no_grad():
+            out = rasterize(xyz, opac, scales, quats, self.camera(i), GT_RASTER,
+                            colors=rgb, obj_features=torch.as_tensor(onehot, device=self.device),
+                            windowed=False)
+        obj = out.objects.cpu().numpy()  # [16,H,W] alpha-weighted densities
+        alpha = out.alpha[0].cpu().numpy()
+        labels = np.argmax(obj, axis=0).astype(np.int32)
+        return np.where(alpha > 0.5, labels, 0)
+
     def __len__(self):
         return self.n_frames
 

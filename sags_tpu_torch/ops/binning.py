@@ -95,6 +95,9 @@ def fill_table(gid_sorted: torch.Tensor, starts: torch.Tensor, num_tiles: int,
         raise TypeError("fill_table: gid_sorted and starts must be int32")
     if starts.shape != (num_tiles + 1,) or gid_sorted.dim() != 1:
         raise ValueError("fill_table: expected gid_sorted [N], starts [NT+1]")
+    if capacity % 4:
+        raise ValueError("fill_table: the kernel stores 16-byte vectors; "
+                         f"capacity {capacity} is not a multiple of 4")
     gid_sorted = gid_sorted.contiguous()
     starts = starts.contiguous()
     out = torch.empty((num_tiles, capacity), dtype=torch.int32,
@@ -103,3 +106,12 @@ def fill_table(gid_sorted: torch.Tensor, starts: torch.Tensor, num_tiles: int,
                   num_tiles, capacity, out.data_ptr(),
                   stream_ptr(gid_sorted.device))
     return out
+
+
+def fill_table_floor(num_tiles: int, capacity: int, device) -> None:
+    """Launch an empty kernel with `fill_table`'s grid: the launch-to-end
+    floor its time is measured against. Counts no launch of `fill_table`."""
+    fn = KERNEL.function("sags_fill_table_empty", [_I, _I, _P], ctypes.c_int)
+    code = fn(num_tiles, capacity, stream_ptr(device))
+    if code != 0:
+        raise RuntimeError(f"sags_fill_table_empty failed ({code})")

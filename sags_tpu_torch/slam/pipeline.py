@@ -4,8 +4,15 @@ frame, with the metrics ring drained every `metrics_interval` frames, the
 overflow-adaptive render capacities (with the windowed budget probe), and
 `evaluate`, the PSNR / SSIM / LPIPS of the map rendered at given poses.
 
+With a mask generator (`semantics.geometric.GeometricMaskGenerator` or
+`semantics.masks.MaskGenerator`) a keyframe is split as in
+`sags_tpu/slam/pipeline.py:602-611`: `track_add(write_row=False)`, then
+`_make_objects` (the generator's label map at the tracked pose, its IDs
+associated on the device by `DeviceInstanceAssociator`), then `train_only`
+on those objects, which writes the frame's one metrics row.
+
 Not ported yet (later slices): the per-module path (`fused_frontend=False`,
-the esikf tracker), the mask generator and ID association.
+the esikf tracker), the `gicp_map` and `vgicp` trackers, meshes.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from sags_tpu_torch.io.datasets import Frame
 from sags_tpu_torch.io.queue import FrameQueue
 from sags_tpu_torch.mapping import gaussian_map as gm
 from sags_tpu_torch.ops import rasterize as rz
+from sags_tpu_torch.semantics.association import DeviceInstanceAssociator
 from sags_tpu_torch.slam import fused as fused_mod
 from sags_tpu_torch.slam import step as slam_step_mod
 
@@ -74,10 +82,6 @@ class SLAMPipeline:
     def __init__(self, cfg: SLAMConfig, mask_generator=None, mesh=None,
                  point_budget: int = 4096, rng_seed: int = 0, device=None,
                  draws=None):
-        if mask_generator is not None:
-            raise NotImplementedError(
-                "mask generation and ID association are not ported yet "
-                "(the semantics slice)")
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
         if not cfg.fused_frontend:
@@ -85,9 +89,13 @@ class SLAMPipeline:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.point_budget = point_budget
+        self.mask_generator = mask_generator
         self.state = slam_step_mod.init_state(cfg, rng_seed, device=self.device,
                                               draws=draws)
         self.keyframes: List[Keyframe] = []
+        self.associator = DeviceInstanceAssociator(
+            cfg.semantics.overlap_threshold, lidar_axes=cfg.lidar_axes,
+            num_classes=cfg.semantics.num_classes)
         self.losses: List[float] = []
         self.train_iter = 0
         self._kf_rng = np.random.default_rng(rng_seed)
@@ -248,6 +256,24 @@ class SLAMPipeline:
         self.cfg = self.cfg.replace(raster=dataclasses.replace(r, tile_capacity=target))
         self._rebuild_frontend()
 
+    def _make_objects(self, frame: Frame, pose: torch.Tensor) -> torch.Tensor:
+        """The mask generator's label map of the frame, its IDs associated
+        on the device with the map's (`sags_tpu/slam/pipeline.py:542-563`):
+        one [L, L] vote table crosses to the host. Returns [H,W] int32 on
+        the map's device."""
+        H, W = frame.image.shape[1:]
+        mask = torch.as_tensor(
+            np.asarray(self.mask_generator.generate_objects(frame.image)).astype(np.int32),
+            device=self.device)
+        cam_cfg = self.cfg.camera
+        fx = cam_cfg.fx * W / cam_cfg.width
+        fy = cam_cfg.fy * H / cam_cfg.height
+        cx = cam_cfg.cx * W / cam_cfg.width
+        cy = cam_cfg.cy * H / cam_cfg.height
+        return self.associator.associate(
+            self.state.map.xyz, self.state.map.active, mask, pose, (fx, fy, cx, cy),
+            used_labels=getattr(self.mask_generator, "used_labels", None))
+
     # -- fused front-end ------------------------------------------------
     def _fused_setup(self, df, frame: Frame) -> None:
         H, W = frame.image.shape[1:]
@@ -287,9 +313,18 @@ class SLAMPipeline:
         common = (self.state, self.track, scan, smask, df.points, df.colors,
                   df.mask, df.pose)
         if frame_idx % cfg.keyframes.keyframe_freq == 0:
-            objects = self._zeros_objects
-            self.state, self.track, T, cam = self._fused.track_add_train_self(
-                *common, df.image, objects, first=first)
+            if self.mask_generator is not None:
+                # the masks and their association need the tracked pose
+                # between tracking and training
+                self.state, self.track, T, cam = self._fused.track_add(
+                    *common, first=first, write_row=False)
+                objects = self._make_objects(frame, T)
+                self.state, self.track = self._fused.train_only(
+                    self.state, self.track, cam, df.image, objects)
+            else:
+                objects = self._zeros_objects
+                self.state, self.track, T, cam = self._fused.track_add_train_self(
+                    *common, df.image, objects, first=first)
             self.keyframes.append(Keyframe(camera=cam, image=df.image,
                                            objects=objects, pose=T))
             if len(self.keyframes) > cfg.keyframes.window:

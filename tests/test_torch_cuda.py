@@ -22,6 +22,7 @@ from sags_tpu_torch.core.config import RasterizeConfig
 from sags_tpu_torch.ops import _build, binning, composite
 from sags_tpu_torch.ops import rasterize as rz
 from sags_tpu_torch.ops import sort, windowed
+from sags_tpu_torch.semantics import association as assoc_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +69,23 @@ def test_fill_table_kernel_matches_plain(device, K):
     want = binning.fill_table_plain(gid_s, starts, TILES_X * TILES_Y, K)
     assert torch.equal(got, want)
     assert binning.KERNEL.launches > 0
+
+
+@pytest.mark.parametrize("K", [16, 512, 1024])
+def test_fill_table_kernel_edge_cases(device, K):
+    """Exactly equal on counts of 0, 1-3, 5-7, K and above K, starts at
+    every residue mod 4, and a last segment ending at n_sorted."""
+    rng = np.random.default_rng(K)
+    counts = [0, 1, 2, 3, 5, 6, 7, K, K + 37, 0, 4 * K, 9]
+    counts += list(rng.integers(0, 2 * K, 12))
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    gid = rng.permutation(int(starts[-1]) + 11)[:int(starts[-1])].astype(np.int32)
+    gid_t, starts_t = torch.as_tensor(gid, device=device), torch.as_tensor(starts, device=device)
+    got = binning.fill_table(gid_t, starts_t, len(counts), K)
+    want = binning.fill_table_plain(gid_t, starts_t, len(counts), K)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        binning.fill_table(gid_t, starts_t, len(counts), K + 2)
 
 
 @pytest.mark.parametrize("chunk", [32, 64])
@@ -460,6 +478,66 @@ def test_windowed_render_on_the_card(device):
                                        rtol=0)
         for f in ("n_binned", "overflow_tile", "overflow_rect", "tile_peak"):
             assert int(getattr(g, f)) == int(getattr(c, f)), f
+
+
+def test_device_associator_on_the_card_matches_the_cpu(device):
+    """`DeviceInstanceAssociator` over three keyframes of a 4096-slot cloud
+    (the second after a capacity growth from 2048), on the card and on the
+    CPU: the votes, the remapped masks, the label memory and the freed
+    labels bitwise equal (elementwise float32 projection in a fixed order,
+    integer votes)."""
+    rng = np.random.default_rng(4)
+    L, h, w = 24, 48, 64
+    intr = (50.0, 52.0, 31.5, 23.75)
+    xyz = np.stack([rng.uniform(-2.5, 2.5, 4096), rng.uniform(-2, 2, 4096),
+                    rng.uniform(-1, 8, 4096)], -1).astype(np.float32)
+    steps = []
+    for k, (cap, n_act) in enumerate([(2048, 1500), (4096, 2600), (4096, 4000)]):
+        pose = np.eye(4, dtype=np.float32)
+        c, s = np.cos(0.05 * k), np.sin(0.05 * k)
+        pose[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        pose[:3, 3] = (0.1 * k, 0.0, 0.2 * k)
+        lab = rng.choice(np.concatenate([[0], rng.permutation(np.arange(1, L))[:8]]), (6, 8))
+        mask = np.repeat(np.repeat(lab, 8, 0), 8, 1).astype(np.int32)
+        steps.append((xyz[:cap], np.arange(cap) < n_act, mask, pose))
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        assoc = assoc_mod.DeviceInstanceAssociator(0.5, num_classes=L)
+        outs = []
+        for x, act, mask, pose in steps:
+            used = set(range(1, L))
+            t = lambda a: torch.as_tensor(a, device=dev)
+            prev = assoc._prev_labels
+            got = assoc.associate(t(x), t(act), t(mask), t(pose), intr, used_labels=used)
+            votes = None
+            if prev is not None and prev.shape[0] == x.shape[0]:
+                votes, _ = assoc_mod._project_vote(t(x), t(act), prev, t(mask), t(pose[:3, :3]),
+                                                   t(pose[:3, 3]), *intr, L, False, w, h)
+                votes = votes.cpu()
+            outs.append((got.cpu(), assoc._prev_labels.cpu(), used, votes))
+        runs[dev.type] = outs
+    for (m_c, p_c, u_c, v_c), (m_g, p_g, u_g, v_g) in zip(runs["cpu"], runs["cuda"]):
+        assert torch.equal(m_c, m_g) and torch.equal(p_c, p_g) and u_c == u_g
+        assert (v_c is None) == (v_g is None) and (v_c is None or torch.equal(v_c, v_g))
+    assert int(runs["cuda"][-1][3].sum()) > 1000
+
+
+def test_sam_encoder_on_the_card_matches_the_cpu(device):
+    """SAM with the shipped weights: the encoder's features and the
+    decoder's low-res logits on the card against the CPU (float32, TF32
+    off), 1e-4 and 1e-3 absolute."""
+    from sags_tpu_torch.models import sam
+
+    rng = np.random.default_rng(0)
+    img = rng.uniform(size=(120, 160, 3)).astype(np.float32)
+    boxes = np.array([[0, 0, 100, 80], [30, 20, 160, 120], [5, 60, 90, 119]], np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        pred = sam.SamPredictor(sam.SAM.pretrained(device=dev)).set_image(img)
+        low = pred.decode_boxes(pred.transform.apply_boxes(boxes, pred.original_size))
+        outs[dev] = (pred.features.cpu(), low.cpu())
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], atol=1e-3, rtol=0)
 
 
 def test_header_edit_changes_the_library_hash(monkeypatch, tmp_path):

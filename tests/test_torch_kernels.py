@@ -81,6 +81,63 @@ def test_fill_table_plain_segments():
     np.testing.assert_array_equal(out, want)
 
 
+def _fill_edge_segments(K, seed=0):
+    """Segments for `fill_table`'s edge cases: counts of 0, 1-3 and 5-7 (a
+    vector half inside), exactly K, above K, starts at every residue mod 4,
+    and the last segment ending at n_sorted."""
+    rng = np.random.default_rng(seed)
+    counts = [0, 1, 2, 3, 5, 6, 7, K, K + 37, 0, 4 * K, 9]
+    counts += list(rng.integers(0, 2 * K, 12))
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    gid = rng.permutation(int(starts[-1]) + 11)[:int(starts[-1])].astype(np.int32)
+    return gid, starts, len(counts)
+
+
+def _fill_table_vector_model(gid, starts, NT, K, n_threads):
+    """The CUDA kernel's indexing in numpy: thread `tid` of a grid of
+    `n_threads` takes vectors tid, tid + n_threads, ...; vector v is row
+    v // (K/4), columns 4 (v % (K/4)) .. +3; a vector wholly past the
+    tile's count stores -1 without reading. Returns (table, writes per
+    vector, the ids' positions read)."""
+    n, vpr = len(gid), K // 4
+    out = np.full((NT * vpr, 4), 7777, np.int32)
+    writes = np.zeros(NT * vpr, np.int64)
+    reads = []
+    for tid in range(n_threads):
+        for v in range(tid, NT * vpr, n_threads):
+            t, k0 = v // vpr, 4 * (v % vpr)
+            s = int(starts[t])
+            cnt = min(int(starts[t + 1]) - s, K)
+            o = [-1, -1, -1, -1]
+            if k0 < cnt:
+                for j in range(4):
+                    if k0 + j < cnt and s + k0 + j < n:
+                        o[j] = int(gid[s + k0 + j])
+                        reads.append(s + k0 + j)
+            out[v] = o
+            writes[v] += 1
+    return out.reshape(NT, K), writes, np.asarray(reads)
+
+
+@pytest.mark.parametrize("n_threads", [64, 100_000])
+@pytest.mark.parametrize("K", [16, 128])
+def test_fill_table_vector_indexing(K, n_threads):
+    """The kernel's 16-byte-vector grid-stride indexing equals the plain
+    version on the edge cases, writes every vector once whether the grid is
+    smaller or larger than the work, and reads exactly the kept ids, each
+    once."""
+    gid, starts, NT = _fill_edge_segments(K)
+    got, writes, reads = _fill_table_vector_model(gid, starts, NT, K, n_threads)
+    want = binning.fill_table_plain(torch.as_tensor(gid), torch.as_tensor(starts),
+                                    NT, K).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (writes == 1).all()
+    kept = np.concatenate([np.arange(s, s + min(e - s, K))
+                           for s, e in zip(starts[:-1], starts[1:])])
+    np.testing.assert_array_equal(np.sort(reads), kept)
+    assert int(starts[-1]) == len(gid)  # the last segment ends at n_sorted
+
+
 def _packed(seed, K, chunk):
     pj, pt, jcfg, tcfg, objs = _both(seed, K, chunk)
     table_j, counts_j = jrz.bin_gaussians(pj, TILES_X, TILES_Y, jcfg)[:2]

@@ -57,7 +57,7 @@ def main():
     from sags_tpu_torch.slam.pipeline import SLAMPipeline
 
     device = resolve_device("cuda")
-    cfg, frames = chip_smoke.slam_setup(device, 48)
+    cfg, frames, _ = chip_smoke.slam_setup(device, 48)
     pipe = SLAMPipeline(cfg, point_budget=cfg.tracking.max_points, rng_seed=0,
                         device=device)
     res = pipe.run(frames, post_train=0)

@@ -64,8 +64,8 @@ def main():
                 return _fn(*a, **k)
         setattr(modules[mod], name, ranged_fn)
 
-    cfg, frames = chip_smoke.slam_setup(device, args.warm + args.frames,
-                                        train_windowed=args.train_windowed)
+    cfg, frames, _ = chip_smoke.slam_setup(device, args.warm + args.frames,
+                                           train_windowed=args.train_windowed)
     pipe = SLAMPipeline(cfg, point_budget=cfg.tracking.max_points, rng_seed=0,
                         device=device)
     pipe.run(frames[:args.warm], post_train=0)
