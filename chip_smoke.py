@@ -81,7 +81,20 @@ Phases, each failing the run (non-zero exit, no result line):
      on the card against
      the port's CPU run on three keyframe images (encoder features to 1e-4,
      low-res logits to 1e-3, labels on 99.9% of the pixels), timed per
-     encoder call and decoder batch, then a 10-frame loop with it.
+     encoder call and decoder batch, then a 10-frame loop with it;
+  8. tracking: `SLAMPipeline.run` over the loop's first 16 + 8 frames under
+     "vgicp" (its ATE within 5% of the JAX package's on the same scans,
+     `tools/reference_vgicp_ate.py`) and under "gicp_map" (the map
+     anchored, the frame printed; ATE < 0.12 m over the first 0.75 m; its
+     whole-run ATE against 1.05 × the classic loop's + 1e-4 over the same
+     frames, printed as met or not), each with finite, falling losses, one
+     metrics row a frame, LM iterations and `ms_per_frame`, and the three
+     training kernels launched and held at the loop's newest keyframe at the
+     classic loop's bars; then `FastGICP`, `FastGICPSingleThread`,
+     `FastVGICP` (DIRECT1, DIRECT7), `NDTCuda` (P2D) and `align_points` on
+     `tests/test_gicp.py`'s structured pair within its 5 cm / 1° gate (NDT
+     within `tests/test_ndt.py`'s 10 cm / 1.5°), each align timed, and
+     `build_voxel_map` twice on a 4096-point scan, bitwise equal.
 Launch counts are zeroed just before each main path (each loop, each eval
 mode) and read just after. The line before the last holds each kernel's
 launches on its path, its time, its plain version's time, the library
@@ -113,6 +126,10 @@ BWD_OPS_PER_PIXEL_PAIR = 190.0
 # `tools/reference_tracking_ate.py`; under tracking "gicp" the pose chain
 # depends on the scans only, so the port's loop must land on the same value
 REFERENCE_ATE_M = 0.19425298273563385
+# ATE (m) of the JAX package's VGICP chain (default `GICPConfig`: 1 m voxels,
+# DIRECT1) over the first 24 of those frames' scans, from
+# `tools/reference_vgicp_ate.py`; the scan-to-scan chain depends on the scans only
+REFERENCE_VGICP_ATE_M = 0.34979772567749023
 ATE_BAR_M, ATE_BAR_PATH_M = 0.12, 0.75  # `tests/test_pipeline.py:71`
 SLAM_KERNELS = ("sags_fill_table", "sags_composite_fused", "sags_composite_fused_bwd")
 EVAL_EVERY = 6
@@ -872,8 +889,9 @@ def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, acc_s, sargs, s
     return res
 
 
-def slam_config(points=4096, capacity=2 ** 18, train_windowed=False):
-    """The pipeline bench's operating point (`bench.py:bench_pipeline`)."""
+def slam_config(points=4096, capacity=2 ** 18, train_windowed=False, tracking="gicp"):
+    """The pipeline bench's operating point (`bench.py:bench_pipeline`),
+    with the tracking backend `tracking` at its defaults."""
     from sags_tpu_torch.core.config import (KeyframeConfig, MapConfig,
                                             RasterizeConfig, SLAMConfig,
                                             TrackingConfig)
@@ -883,7 +901,7 @@ def slam_config(points=4096, capacity=2 ** 18, train_windowed=False):
                                train_windowed=train_windowed),
         map=MapConfig(initial_capacity=capacity),
         keyframes=KeyframeConfig(keyframe_freq=5, window=16),
-        tracking=TrackingConfig(backend="gicp", max_points=points),
+        tracking=TrackingConfig(backend=tracking, max_points=points),
         post_train_iters=0, metrics_interval=5,
     )
 
@@ -1746,6 +1764,212 @@ def sam_phase(device, images, frames, num_classes, n_loop=10):
     return res
 
 
+def structured_cloud(rng, n=2048):
+    """Three walls and a floor with mild waviness (`tests/test_gicp.py`'s
+    `make_structured_cloud`): a full 3D constraint set."""
+    import numpy as np
+
+    n4 = n // 4
+    u = [rng.uniform(0, 4, (n4, 2)) for _ in range(3)] + [rng.uniform(0, 4, (n - 3 * n4, 2))]
+    cloud = np.concatenate([
+        np.stack([u[0][:, 0], u[0][:, 1], 0.05 * np.sin(3 * u[0][:, 0])], -1),
+        np.stack([u[1][:, 0], 0.05 * np.sin(2 * u[1][:, 1]), u[1][:, 1]], -1),
+        np.stack([0.05 * np.cos(2 * u[2][:, 0]), u[2][:, 0], u[2][:, 1]], -1),
+        np.stack([u[3][:, 0], 4.0 + 0.04 * np.sin(u[3][:, 0] * 2), u[3][:, 1]], -1),
+    ]).astype(np.float32)
+    return cloud + rng.normal(0, 0.005, cloud.shape).astype(np.float32)
+
+
+def pose_errors(T_est, T_gt):
+    """(translation m, rotation deg) of T_gt⁻¹ T_est."""
+    import numpy as np
+
+    dT = np.linalg.inv(T_gt) @ T_est
+    cos = (np.trace(dT[:3, :3]) - 1) / 2
+    return float(np.linalg.norm(dT[:3, 3])), float(np.degrees(np.arccos(np.clip(cos, -1, 1))))
+
+
+def registration_phase(device, scan):
+    """The pygicp class API on the card on `tests/test_gicp.py`'s structured
+    pair (a ~3.5° and 27 cm move): each align within 5 cm / 1° of the true
+    transform (NDT P2D within `tests/test_ndt.py`'s 10 cm / 1.5°), timed
+    warm (a first call beside it); and `build_voxel_map` twice on a loop
+    scan, bitwise equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.core.config import GICPConfig
+    from sags_tpu_torch.core.transforms import se3_matrix, so3_exp
+    from sags_tpu_torch.ops import gicp
+    from sags_tpu_torch.ops import registration as reg
+
+    target = structured_cloud(np.random.default_rng(5))
+    T_gt = se3_matrix(so3_exp(torch.tensor([0.02, -0.03, 0.05])),
+                      torch.tensor([0.15, -0.2, 0.1])).numpy()
+    world = structured_cloud(np.random.default_rng(9))
+    Ti = np.linalg.inv(T_gt)
+    source = (world @ Ti[:3, :3].T + Ti[:3, 3]).astype(np.float32)
+    cfg = dataclasses.replace(GICPConfig(), voxel_resolution=0.5)
+
+    def make(cls, **kw):
+        def align():
+            r = cls(cfg, device=device)
+            for name, arg in kw.items():
+                getattr(r, name)(*arg)
+            r.set_input_target(target)
+            r.set_input_source(source)
+            return r.align(), r.has_converged()
+        return align
+
+    aligns = {
+        "FastGICP": (make(reg.FastGICP), 0.05, 1.0),
+        "FastGICPSingleThread": (make(reg.FastGICPSingleThread), 0.05, 1.0),
+        "FastVGICP_direct1": (make(reg.FastVGICP), 0.05, 1.0),
+        "FastVGICP_direct7": (make(reg.FastVGICP, set_neighbor_search_method=("DIRECT7",)),
+                              0.05, 1.0),
+        "NDTCuda_p2d": (make(reg.NDTCuda, set_resolution=(0.5,), set_distance_mode=("P2D",)),
+                        0.10, 1.5),
+        "align_points_VGICP": (lambda: (reg.align_points(target, source, method="VGICP",
+                                                         voxel_resolution=0.5,
+                                                         device=device), True), 0.05, 1.0),
+    }
+    out = {}
+    for name, (fn, t_bar, r_bar) in aligns.items():
+        ms = []
+        for _ in range(2):  # first call, then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T, converged = fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        te, re = pose_errors(T, T_gt)
+        out[name] = {"ms": ms[1], "first_call_ms": ms[0], "trans_err_m": te, "rot_err_deg": re,
+                     "converged": bool(converged), "gate": [t_bar, r_bar]}
+
+    pts = torch.as_tensor(scan, device=device)
+    mask = torch.ones(pts.shape[0], dtype=torch.bool, device=device)
+    g = GICPConfig()
+    covs = gicp.estimate_covariances(pts, mask, g.k_correspondences, g.knn_max_distance,
+                                     g.regularization).covs
+    maps = [gicp.build_voxel_map(pts, covs, mask, g.voxel_resolution, g.max_voxels)
+            for _ in range(2)]
+    vm_ms = cuda_ms(lambda: gicp.build_voxel_map(pts, covs, mask, g.voxel_resolution,
+                                                 g.max_voxels), 5)
+    bitwise = all(torch.equal(getattr(maps[0], f), getattr(maps[1], f))
+                  for f in ("keys", "means", "covs", "num_points"))
+    out["build_voxel_map"] = {"points": int(pts.shape[0]), "voxels": int(maps[0].n_voxels),
+                              "bitwise_repeatable": bitwise, "ms": vm_ms}
+    return out
+
+
+def tracking_loop(device, frames, backend, n_warm, n_timed):
+    """`SLAMPipeline.run` with tracking `backend` at its defaults over
+    `frames[:n_warm + n_timed]` (timed: the last `n_timed`, CUDA events),
+    then the three training kernels at this loop's shapes on its newest
+    keyframe."""
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.slam.pipeline import SLAMPipeline
+    from sags_tpu_torch.utils.traj import ate_rmse
+
+    n_frames = n_warm + n_timed
+    cfg = slam_config(tracking=backend)
+    pipe = SLAMPipeline(cfg, point_budget=cfg.tracking.max_points, rng_seed=0, device=device)
+    _build.reset_launch_counts()
+    warm = pipe.run(frames[:n_warm], post_train=0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    timed = pipe.run(frames[n_warm:n_frames], post_train=0)
+    end.record()
+    torch.cuda.synchronize()
+    frame_ms = start.elapsed_time(end) / n_timed
+    launches = {k.symbol: k.launches for k in _build.kernels()}
+    fwd, bwd = loop_fused_check(device, pipe, pipe.keyframes[-1].camera)
+
+    poses = np.concatenate([warm.poses_est, timed.poses_est])
+    gt = np.concatenate([warm.poses_gt, timed.poses_gt])
+    ate, err = ate_rmse(poses, gt, align=False)
+    near = np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=-1) <= ATE_BAR_PATH_M
+    ate_near, _ = ate_rmse(poses[near], gt[near], align=False)
+    losses = np.asarray(timed.losses)  # the pipeline's log holds every frame
+    third = max(1, len(losses) // 3)
+    lm = np.asarray(pipe.lm_log, np.float64)
+    return pipe, {
+        "backend": backend, "frames": n_frames, "ms_per_frame": frame_ms, "ate_m": ate,
+        f"ate_first_{ATE_BAR_PATH_M}m": ate_near, "frames_first_path": int(near.sum()),
+        "error_m_per_frame": np.asarray(err).tolist(),
+        "map_anchored": pipe._map_anchored, "anchored_at_frame": pipe.anchored_at,
+        "lm_outer_per_frame": float(lm[:, 0].sum() / n_frames),
+        "lm_inner_per_frame": float(lm[:, 1].sum() / n_frames),
+        "lm_iterations": pipe.lm_log,
+        "loss_first_third": float(losses[:third].mean()),
+        "loss_last_third": float(losses[-third:].mean()), "losses_finite":
+        bool(np.isfinite(losses).all()), "metrics_rows": len(losses),
+        "launches": launches,
+        "launches_per_frame": {k: launches[k] / n_frames for k in SLAM_KERNELS},
+        "composite_fused_at_loop": fwd, "composite_fused_bwd_at_loop": bwd}
+
+
+def tracking_phase(device, frames, classic, n_warm=16, n_timed=8):
+    """The loop's first 16 + 8 frames under "vgicp" (scan-to-scan against the
+    previous scan's voxel map; its ATE within 5% of the JAX package's on the
+    same scans) and under "gicp_map" (scan-to-map once the map anchors;
+    anchored, and within the 0.12 m bar over the first 0.75 m), each with
+    finite, falling losses and the three training kernels launched and held
+    at the loop's shapes; then the registration classes on the card."""
+    import numpy as np
+
+    from sags_tpu_torch.utils.traj import ate_rmse
+
+    n_frames = n_warm + n_timed
+    gt = np.stack([f.pose for f in frames[:n_frames]])
+    ate_classic, _ = ate_rmse(classic["poses"][:n_frames], gt, align=False)
+    loops = {}
+    for backend in ("vgicp", "gicp_map"):
+        pipe, loops[backend] = tracking_loop(device, frames, backend, n_warm, n_timed)
+    m = loops["gicp_map"]
+    relation = m["ate_m"] <= 1.05 * ate_classic + 1e-4  # `tests/test_pipeline.py:152-153`
+    reg = registration_phase(device, frames[0].scan)
+    res = {"phase": "tracking", "frames": n_frames,
+           "classic_ms_per_frame": classic["ms_per_frame"],
+           "classic_ate_m_same_frames": ate_classic,
+           "classic_lm_outer_per_frame": float(np.sum(
+               [x[0] for x in classic["lm_log"][:n_frames - 1]]) / n_frames),
+           "classic_lm_inner_per_frame": float(np.sum(
+               [x[1] for x in classic["lm_log"][:n_frames - 1]]) / n_frames),
+           "reference_vgicp_ate_m": REFERENCE_VGICP_ATE_M,
+           "gicp_map_ate_le_1.05_classic_plus_1e-4": "met" if relation else "not met",
+           **loops, "registration": reg}
+    emit(res)
+    for backend, r in loops.items():
+        assert r["losses_finite"], f"{backend}: non-finite loss"
+        assert r["metrics_rows"] == n_frames, (backend, r["metrics_rows"])
+        assert r["loss_last_third"] < r["loss_first_third"], (backend, r["loss_first_third"],
+                                                              r["loss_last_third"])
+        for sym in SLAM_KERNELS:
+            assert r["launches"][sym] > 0, f"{sym} never launched in the {backend} loop"
+        assert_loop_fused(r["composite_fused_at_loop"], r["composite_fused_bwd_at_loop"],
+                          f"the {backend} loop")
+    v = loops["vgicp"]
+    assert v["ate_m"] <= 1.05 * REFERENCE_VGICP_ATE_M, \
+        f"vgicp ATE {v['ate_m']} m, reference {REFERENCE_VGICP_ATE_M} m"
+    assert m["map_anchored"], "gicp_map: the map never anchored"
+    near = m[f"ate_first_{ATE_BAR_PATH_M}m"]
+    assert near < ATE_BAR_M, f"gicp_map ATE {near} m over the first {ATE_BAR_PATH_M} m"
+    for name, r in reg.items():
+        if name == "build_voxel_map":
+            assert r["bitwise_repeatable"], f"build_voxel_map not bitwise repeatable: {r}"
+            continue
+        t_bar, r_bar = r["gate"]
+        assert r["trans_err_m"] < t_bar and r["rot_err_deg"] < r_bar, f"{name}: {r}"
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1785,6 +2009,7 @@ def main() -> int:
                                                       dict(classic, poses=poses))
     _, kf_images, sem = semantic_phase(device, frames, dict(classic, poses=poses, pipe=pipe))
     sam_phase(device, kf_images, frames, pipe.cfg.semantics.num_classes)
+    tracking_phase(device, frames, dict(classic, poses=poses, lm_log=pipe.lm_log))
 
     # (source, TPU kernel, C symbol, the path whose launches count, frames on it)
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",

@@ -4,19 +4,24 @@ registration → map growth → one training step → a metrics row.
 
 There is no `jit`: each "program" is one Python function of device tensors.
 Host-read scalars go to a device metrics ring that the pipeline drains every
-`metrics_interval` frames. Tracking modes ported: "gicp" (scan-to-scan) and
-"none" (odometry poses consumed).
+`metrics_interval` frames. Tracking modes: "gicp" and "vgicp" (scan-to-scan),
+"gicp_map" (scan-to-map against the map's trackable Gaussians once the
+pipeline finds the map anchored, scan-to-scan before), "none" (odometry
+poses consumed). The ESIKF tracker needs the per-module path, which is not
+ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple
 
 import torch
 
 from sags_tpu_torch.core.camera import Camera, focal2fov, make_camera
 from sags_tpu_torch.core.config import SLAMConfig
-from sags_tpu_torch.core.transforms import LIDAR_TO_CAM
+from sags_tpu_torch.core.transforms import (LIDAR_TO_CAM, quat_to_rotmat, rotmat_to_quat,
+                                            se3_inverse, se3_matrix)
 from sags_tpu_torch.mapping import gaussian_map as gm
 from sags_tpu_torch.ops import gicp as gicp_ops
 from sags_tpu_torch.slam import step as slam_step_mod
@@ -88,30 +93,58 @@ class FusedFrontend:
     """The per-frame programs for one (cfg, H, W, sensor_frame) operating
     point. `lm_log` collects (outer, inner) LM iterations per align."""
 
-    MODES = ("gicp", "none")
+    MODES = ("gicp", "vgicp", "gicp_map", "none")
 
     def __init__(self, cfg: SLAMConfig, H: int, W: int, *, sensor_frame: bool):
         if cfg.tracking.backend not in self.MODES:
             raise NotImplementedError(
                 f"tracking backend {cfg.tracking.backend!r} is not ported yet "
-                f"(ported: {self.MODES})")
+                f"(ported: {self.MODES}; esikf needs the per-module path)")
         self.cfg = cfg
         self.H, self.W = H, W
         self.sensor_frame = sensor_frame
         self.lm_log: List[tuple] = []
 
     # -- pieces ------------------------------------------------------------
-    def _track(self, track: TrackState, scan, smask, pose_in, *, first: bool):
+    def _track(self, state, track: TrackState, scan, smask, pose_in, *, anchored: bool,
+               first: bool):
+        """Pose estimate and the next frame's target (`sags_tpu/slam/fused.py`
+        `_track`): scan-to-scan deltas compose into `track.T`; the anchored
+        scan-to-map align solves the absolute pose from the constant-velocity
+        prediction. Covariances are estimated once per scan and reused as the
+        next frame's target."""
         cfg = self.cfg
-        if cfg.tracking.backend == "none":
+        mode = cfg.tracking.backend
+        if mode == "none":
             return (pose_in, track.prev_scan, track.prev_mask, track.prev_covs,
                     track.prev_delta)
         covs = _estimate_covs(scan, smask, cfg).covs
         if first:
             return track.T, scan, smask, covs, track.prev_delta
-        res = gicp_ops.gicp_align(scan, track.prev_scan, smask, track.prev_mask,
-                                  track.prev_delta, cfg.gicp, source_covs=covs,
-                                  target_covs=track.prev_covs)
+        if mode == "gicp_map" and anchored:
+            tcfg = cfg.tracking
+            tgt, tcov, tmask, _ = gm.trackable_subset(state.map, tcfg.opacity_threshold,
+                                                      tcfg.max_points)
+            # part of each scan is new geometry with no map counterpart yet:
+            # gate the correspondences so it does not drag the solve
+            gcfg = dataclasses.replace(cfg.gicp, corr_dist_threshold=tcfg.map_corr_threshold)
+            init = track.T @ track.prev_delta  # constant-velocity warm start
+            res = gicp_ops.gicp_align(scan, tgt, smask, tmask, init, gcfg, source_covs=covs,
+                                      target_covs=tcov)
+            self.lm_log.append((res.iterations, res.lm_iterations))
+            # a solve that lands far from the prediction failed (thin or
+            # ambiguous target): keep the prediction, with no host sync
+            jump = torch.linalg.vector_norm(res.T[:3, 3] - init[:3, 3])
+            T_new = torch.where(jump <= tcfg.max_jump, res.T, init)
+            # Project the rotation back onto SO(3). The next warm start is
+            # T·(Tᵀ-inverse(T_prev)·T): without this, float32 rounding of
+            # RRᵀ = I grows ~2.4× a frame through that loop (1e-7 → 5e-2 in
+            # 16 frames, then the solve fails), as it does in the JAX package
+            T_new = se3_matrix(quat_to_rotmat(rotmat_to_quat(T_new[:3, :3])), T_new[:3, 3])
+            return T_new, scan, smask, covs, se3_inverse(track.T) @ T_new
+        align = gicp_ops.vgicp_align if mode == "vgicp" else gicp_ops.gicp_align
+        res = align(scan, track.prev_scan, smask, track.prev_mask, track.prev_delta,
+                    cfg.gicp, source_covs=covs, target_covs=track.prev_covs)
         self.lm_log.append((res.iterations, res.lm_iterations))
         return track.T @ res.T, scan, smask, covs, res.T
 
@@ -129,9 +162,9 @@ class FusedFrontend:
         return state
 
     def _track_add(self, state, track, scan, smask, points, colors, pmask,
-                   pose_in, first: bool):
-        T, pscan, pmsk, pcovs, pdelta = self._track(track, scan, smask, pose_in,
-                                                    first=first)
+                   pose_in, anchored: bool, first: bool):
+        T, pscan, pmsk, pcovs, pdelta = self._track(state, track, scan, smask, pose_in,
+                                                    anchored=anchored, first=first)
         state = self._add(state, T, points, colors, pmask, track.frame_idx)
         track = track._replace(T=T, prev_scan=pscan, prev_mask=pmsk,
                                prev_covs=pcovs, prev_delta=pdelta,
@@ -155,27 +188,29 @@ class FusedFrontend:
         row[MET_N_TRACKABLE] = _n_trackable(state.map, self.cfg).to(torch.float32)
         return _write_row(track, row)
 
-    # -- programs (the JAX FusedFrontend's, less the modes not ported) -----
+    # -- programs (the JAX FusedFrontend's) -------------------------------
     def track_add_train_self(self, state, track, scan, smask, points, colors,
-                             pmask, pose_in, image, objects, *, first: bool):
+                             pmask, pose_in, image, objects, *, first: bool,
+                             anchored: bool = False):
         """Keyframe: track → grow → train at the just-estimated pose."""
         state, track, T = self._track_add(state, track, scan, smask, points,
-                                          colors, pmask, pose_in, first)
+                                          colors, pmask, pose_in, anchored, first)
         cam = _camera_at(T, self.cfg, self.H, self.W)
         state, track = self._train_and_metrics(state, track, cam, image, objects)
         return state, track, T, cam
 
     def track_add_train_stored(self, state, track, scan, smask, points, colors,
-                               pmask, pose_in, kf_cam, kf_image, kf_objects):
+                               pmask, pose_in, kf_cam, kf_image, kf_objects, *,
+                               anchored: bool = False):
         """Replay: track → grow → train on a stored keyframe."""
         state, track, T = self._track_add(state, track, scan, smask, points,
-                                          colors, pmask, pose_in, False)
+                                          colors, pmask, pose_in, anchored, False)
         state, track = self._train_and_metrics(state, track, kf_cam, kf_image,
                                                kf_objects)
         return state, track, T
 
     def track_add(self, state, track, scan, smask, points, colors, pmask,
-                  pose_in, *, first: bool, write_row: bool):
+                  pose_in, *, first: bool, write_row: bool, anchored: bool = False):
         """Track → grow without training: the first half of the semantics
         split (the host makes the frame's objects at the returned camera,
         then `train_only` finishes the frame) and the frame with no replay
@@ -183,7 +218,7 @@ class FusedFrontend:
         when no `train_only` follows, whose row would count the frame twice.
         Returns (state, track, T, cam)."""
         state, track, T = self._track_add(state, track, scan, smask, points,
-                                          colors, pmask, pose_in, first)
+                                          colors, pmask, pose_in, anchored, first)
         cam = _camera_at(T, self.cfg, self.H, self.W)
         if write_row:
             track = self._idle_metrics(state, track)

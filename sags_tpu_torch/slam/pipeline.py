@@ -11,8 +11,14 @@ With a mask generator (`semantics.geometric.GeometricMaskGenerator` or
 associated on the device by `DeviceInstanceAssociator`), then `train_only`
 on those objects, which writes the frame's one metrics row.
 
+Tracking "gicp_map" aligns each scan against the map once the map is
+anchored: `_map_anchored` flips when a frame's metrics row counts
+`anchor_min_points` trackable Gaussians (one scalar fetch a frame until then,
+none after; `sags_tpu/slam/pipeline.py:634-642`), and is chosen on the host
+before each frame.
+
 Not ported yet (later slices): the per-module path (`fused_frontend=False`,
-the esikf tracker), the `gicp_map` and `vgicp` trackers, meshes.
+the esikf tracker), meshes.
 """
 
 from __future__ import annotations
@@ -112,6 +118,11 @@ class SLAMPipeline:
         # memory behind an event, so a lagged drain reads a finished copy
         self._met_snaps: List = []
         self.lm_log: List[tuple] = []  # (outer, inner) LM iterations per align
+        # gicp_map: the map has enough trackable Gaussians to align against.
+        # Monotone (the map only grows), so the probe stops once it flips.
+        self._map_anchored = False
+        self.anchored_at: Optional[int] = None  # first frame tracked scan-to-map
+        self._n_frames = 0  # frames tracked over every `run`
 
     # ------------------------------------------------------------------
     def _maybe_grow_map(self, incoming: int) -> None:
@@ -306,6 +317,7 @@ class SLAMPipeline:
             self._fused_setup(df, frame)
         self._maybe_grow_map(self.point_budget)
         mode = cfg.tracking.backend
+        anchored = self._map_anchored if mode == "gicp_map" else False
         first = self._fused_first and mode != "none"
         scan, smask = df.scan, df.scan_mask
         if scan is None:
@@ -317,14 +329,14 @@ class SLAMPipeline:
                 # the masks and their association need the tracked pose
                 # between tracking and training
                 self.state, self.track, T, cam = self._fused.track_add(
-                    *common, first=first, write_row=False)
+                    *common, first=first, write_row=False, anchored=anchored)
                 objects = self._make_objects(frame, T)
                 self.state, self.track = self._fused.train_only(
                     self.state, self.track, cam, df.image, objects)
             else:
                 objects = self._zeros_objects
                 self.state, self.track, T, cam = self._fused.track_add_train_self(
-                    *common, df.image, objects, first=first)
+                    *common, df.image, objects, first=first, anchored=anchored)
             self.keyframes.append(Keyframe(camera=cam, image=df.image,
                                            objects=objects, pose=T))
             if len(self.keyframes) > cfg.keyframes.window:
@@ -332,13 +344,22 @@ class SLAMPipeline:
         elif cfg.keyframes.replay and self.keyframes:
             kf = self.keyframes[self._kf_rng.integers(len(self.keyframes))]
             self.state, self.track, T = self._fused.track_add_train_stored(
-                *common, kf.camera, kf.image, kf.objects)
+                *common, kf.camera, kf.image, kf.objects, anchored=anchored)
         else:
-            self.state, self.track, T, _ = self._fused.track_add(*common, first=first,
-                                                                write_row=True)
+            self.state, self.track, T, _ = self._fused.track_add(
+                *common, first=first, write_row=True, anchored=anchored)
         self._fused_first = False
         self._host_mi += 1
+        self._n_frames += 1
         self._snapshot()
+        if mode == "gicp_map" and not self._map_anchored:
+            # the anchoring probe: this frame's trackable count, one scalar
+            # fetch a frame until the map anchors, then never again
+            M = self.track.metrics.shape[0]
+            n_sel = int(self.track.metrics[(self._host_mi - 1) % M, fused_mod.MET_N_TRACKABLE])
+            if n_sel >= cfg.tracking.anchor_min_points:
+                self._map_anchored = True
+                self.anchored_at = self._n_frames
         self._maybe_drain_lagged()
         return T
 

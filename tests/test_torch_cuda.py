@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small shapes. A CUDA kernel has no CPU mode, so every kernel test here
-needs an NVIDIA GPU with `nvcc` and skips elsewhere (the library-hash test
-runs anywhere). This file imports no JAX, so it runs on a machine without
-it:
+at small shapes, and the port's device code on the card against the CPU. A
+CUDA kernel has no CPU mode, so every kernel test here needs an NVIDIA GPU
+with `nvcc` and skips elsewhere (the library-hash test runs anywhere). This
+file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -538,6 +538,72 @@ def test_sam_encoder_on_the_card_matches_the_cpu(device):
         outs[dev] = (pred.features.cpu(), low.cpu())
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=1e-4, rtol=0)
     torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], atol=1e-3, rtol=0)
+
+
+def _registration_pair(seed=2, n=1500):
+    """Two noisy planes and a blob (a well-conditioned pair), and the same
+    points moved by a few degrees and centimetres."""
+    from sags_tpu_torch.core.transforms import so3_exp
+
+    rng = np.random.default_rng(seed)
+    a = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1, 1, n),
+                  3.0 + 0.01 * rng.normal(size=n)], -1)
+    b = np.stack([-1.5 + 0.01 * rng.normal(size=n), rng.uniform(-1, 1, n),
+                  rng.uniform(1, 5, n)], -1)
+    c = rng.normal(size=(n // 2, 3)) * 0.2 + np.array([0.5, 0.2, 2.0])
+    tgt = np.concatenate([a, b, c]).astype(np.float32)
+    R = so3_exp(torch.tensor([0.02, -0.03, 0.015])).numpy()
+    src = ((tgt - np.array([0.05, -0.02, 0.08], np.float32)) @ R).astype(np.float32)
+    return src, tgt
+
+
+def test_voxel_map_on_the_card_is_repeatable_and_matches_the_cpu(device):
+    """`build_voxel_map` (additive and multiplicative) twice on the card:
+    bitwise equal (each voxel's points summed in order by `segment_reduce`,
+    no atomics); keys and counts equal to the CPU's, means and covariances
+    to 1e-5 relative, from the same inputs."""
+    from sags_tpu_torch.ops import gicp
+
+    _, tgt = _registration_pair()
+    pts = torch.as_tensor(tgt)
+    mask = torch.ones(len(tgt), dtype=torch.bool)
+    covs = gicp.estimate_covariances(pts, mask, 10, 2.0).covs
+    maps = {}
+    for dev in (torch.device("cpu"), device):
+        pts, mask, covs = pts.to(dev), mask.to(dev), covs.to(dev)
+        maps[dev.type] = {mode: [gicp.build_voxel_map(pts, covs, mask, 0.5, 4096, mode=mode)
+                                 for _ in range(2)]
+                          for mode in ("additive", "multiplicative")}
+    fields = ("keys", "means", "covs", "num_points", "n_voxels", "overflow")
+    for mode, (a, b) in maps["cuda"].items():
+        assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields), mode
+        c = maps["cpu"][mode][0]
+        for f in ("keys", "num_points", "n_voxels", "overflow"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(c, f)), (mode, f)
+        for f in ("means", "covs"):
+            want = getattr(c, f)
+            torch.testing.assert_close(getattr(a, f).cpu(), want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("align", ["vgicp_align", "gicp_align_st"])
+def test_registration_on_the_card_matches_the_cpu(device, align):
+    """`vgicp_align` and `gicp_align_st` on the card against the CPU: the
+    same iteration counts and convergence, the pose within 1e-5."""
+    from sags_tpu_torch.core.config import GICPConfig
+    from sags_tpu_torch.ops import gicp
+
+    src, tgt = _registration_pair()
+    cfg = GICPConfig(knn_max_distance=2.0, voxel_resolution=0.5)
+    res = {}
+    for dev in (torch.device("cpu"), device):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        mask = torch.ones(len(src), dtype=torch.bool, device=dev)
+        res[dev.type] = getattr(gicp, align)(t(src), t(tgt), mask, mask,
+                                             torch.eye(4, device=dev), cfg)
+    g, c = res["cuda"], res["cpu"]
+    assert (g.iterations, g.converged) == (c.iterations, c.converged)
+    torch.testing.assert_close(g.T.cpu(), c.T, atol=1e-5, rtol=0)
 
 
 def test_header_edit_changes_the_library_hash(monkeypatch, tmp_path):
