@@ -81,7 +81,13 @@ Phases, each failing the run (non-zero exit, no result line):
      on the card against
      the port's CPU run on three keyframe images (encoder features to 1e-4,
      low-res logits to 1e-3, labels on 99.9% of the pixels), timed per
-     encoder call and decoder batch, then a 10-frame loop with it;
+     encoder call and decoder batch, then a 10-frame loop with it; then SAM
+     training at the shipped model's size: `make_training_data` at its
+     defaults (four worlds, four frames each, rendered on the card), 100
+     `train_sam` steps of batch 16 from a random SAM (seed 0): the mean loss
+     of the last 10 steps below the first 10's, `save_fp16` read back by
+     `load_pretrained` as the float16-rounded parameters bitwise, and
+     whether two backward passes of one batch agree bitwise (reported);
   8. tracking: `SLAMPipeline.run` over the loop's first 16 + 8 frames under
      "vgicp" (its ATE within 5% of the JAX package's on the same scans,
      `tools/reference_vgicp_ate.py`) and under "gicp_map" (the map
@@ -94,7 +100,22 @@ Phases, each failing the run (non-zero exit, no result line):
      `FastVGICP` (DIRECT1, DIRECT7), `NDTCuda` (P2D) and `align_points` on
      `tests/test_gicp.py`'s structured pair within its 5 cm / 1° gate (NDT
      within `tests/test_ndt.py`'s 10 cm / 1.5°), each align timed, and
-     `build_voxel_map` twice on a 4096-point scan, bitwise equal.
+     `build_voxel_map` twice on a 4096-point scan, bitwise equal;
+  9. the per-module front-end over the loop's first 16 + 8 frames with
+     their IMU samples (`imu_substeps=5`): (a) tracking "esikf" at its
+     defaults (LiDAR-inertial, bootstrap, 10 update iterations), (b) the
+     same with `esikf_visual` (LiDAR-inertial-visual), (c) "gicp" with
+     `fused_frontend=False`; each with finite, falling losses, the three
+     training kernels launched, its `ms_per_frame`, ATE and the host syncs
+     of each warm frame by stage (`torch.cuda.set_sync_debug_mode`): none in
+     the ESIKF tracker once the surfel map is live and the bootstrap done,
+     one packed fetch a training step. The ATEs of (a), (b) and (c) within
+     5% of the JAX package's on the same scans, IMU and images
+     (`tools/reference_esikf_ate.py`; (c)'s beside the classic loop's,
+     whose align starts from the last delta); the surfel map's size, overflow, matches and photometric
+     residuals used; one surfel fold bitwise equal over two runs; the three
+     training kernels held at (a)'s newest keyframe at the classic loop's
+     bars.
 Launch counts are zeroed just before each main path (each loop, each eval
 mode) and read just after. The line before the last holds each kernel's
 launches on its path, its time, its plain version's time, the library
@@ -112,6 +133,7 @@ import math
 import subprocess
 import sys
 import time
+import traceback
 
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -130,6 +152,17 @@ REFERENCE_ATE_M = 0.19425298273563385
 # DIRECT1) over the first 24 of those frames' scans, from
 # `tools/reference_vgicp_ate.py`; the scan-to-scan chain depends on the scans only
 REFERENCE_VGICP_ATE_M = 0.34979772567749023
+# ATEs (m) of the JAX package's ESIKF tracker at its defaults over the first
+# 24 of those frames' scans with their IMU samples (`imu_substeps=5`),
+# LiDAR-inertial and LiDAR-inertial-visual, from `tools/reference_esikf_ate.py`;
+# the filter reads scans, IMU, colours and images, never the map
+REFERENCE_ESIKF_LI_ATE_M = 0.1774776577949524
+REFERENCE_ESIKF_LIV_ATE_M = 0.23271127045154572
+# ATE (m) of the JAX package's per-module "gicp" chain over the same frames
+# (each align from the identity, `sags_tpu/slam/pipeline.py:201-210`; the
+# fused front-end starts from the last delta), same tool
+REFERENCE_GICP_PER_MODULE_ATE_M = 0.09637406468391418
+IMU_SUBSTEPS = 5  # the CLI's synthetic stream
 ATE_BAR_M, ATE_BAR_PATH_M = 0.12, 0.75  # `tests/test_pipeline.py:71`
 SLAM_KERNELS = ("sags_fill_table", "sags_composite_fused", "sags_composite_fused_bwd")
 EVAL_EVERY = 6
@@ -889,9 +922,10 @@ def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, acc_s, sargs, s
     return res
 
 
-def slam_config(points=4096, capacity=2 ** 18, train_windowed=False, tracking="gicp"):
+def slam_config(points=4096, capacity=2 ** 18, train_windowed=False, tracking="gicp",
+                fused_frontend=True, **tracking_kw):
     """The pipeline bench's operating point (`bench.py:bench_pipeline`),
-    with the tracking backend `tracking` at its defaults."""
+    with the tracking backend `tracking` at its defaults but `tracking_kw`."""
     from sags_tpu_torch.core.config import (KeyframeConfig, MapConfig,
                                             RasterizeConfig, SLAMConfig,
                                             TrackingConfig)
@@ -901,19 +935,19 @@ def slam_config(points=4096, capacity=2 ** 18, train_windowed=False, tracking="g
                                train_windowed=train_windowed),
         map=MapConfig(initial_capacity=capacity),
         keyframes=KeyframeConfig(keyframe_freq=5, window=16),
-        tracking=TrackingConfig(backend=tracking, max_points=points),
-        post_train_iters=0, metrics_interval=5,
+        tracking=TrackingConfig(backend=tracking, max_points=points, **tracking_kw),
+        post_train_iters=0, metrics_interval=5, fused_frontend=fused_frontend,
     )
 
 
 def slam_dataset(device, n_frames, width=SLICE_W, height=SLICE_H, n_world=65536,
-                 points=4096):
+                 points=4096, imu_substeps=0):
     """The pipeline bench's synthetic sequence."""
     from sags_tpu_torch.io.datasets import SyntheticDataset
 
     return SyntheticDataset(n_frames=n_frames, width=width, height=height,
                             n_world=n_world, pts_per_frame=points, step=0.075,
-                            clutter=0.3, device=device)
+                            clutter=0.3, imu_substeps=imu_substeps, device=device)
 
 
 def slam_setup(device, n_frames, width=SLICE_W, height=SLICE_H, n_world=65536,
@@ -1761,6 +1795,73 @@ def sam_phase(device, images, frames, num_classes, n_loop=10):
     assert logit_err <= SAM_LOGIT_ATOL, f"SAM low-res logits, card against CPU: {logit_err}"
     assert min(agree) >= SAM_LABELS_AGREE, f"SAM labels, card against CPU: {agree}"
     assert len(losses) == n_loop == run.train_iters and np.isfinite(losses).all(), losses
+    res["train"] = sam_train_phase(device)
+    return res
+
+
+def sam_train_phase(device, steps=100, batch=16):
+    """SAM training at the shipped model's size (embed 160, depth 4, 4 heads,
+    256 canvas, 2 decoder blocks) from a random SAM (seed 0): the data built
+    by `make_training_data` at its defaults on the card, `steps` steps of
+    `train_sam` (lr 3e-4, jitter 4) timed by CUDA events, the loss trend,
+    the float16 file read back, and two backward passes of one batch
+    compared (cuDNN's convolution backwards need not be deterministic:
+    reported, not asserted)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.models import sam_train
+    from sags_tpu_torch.models.sam import SAM, load_pretrained
+
+    t0 = time.perf_counter()
+    data = sam_train.make_training_data(device=device)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    sam = SAM(device=device, seed=0)
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sam_train.train_sam(sam, data, steps=steps, batch=batch, lr=3e-4, seed=0, jitter=4.0,
+                        log_every=0, losses=losses)
+    end.record()
+    torch.cuda.synchronize()
+    ms_per_step = start.elapsed_time(end) / steps
+    L = torch.stack(losses).cpu().numpy()
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sam.pkl")
+        sam_train.save_fp16(sam, path)
+        back = SAM(device=device, seed=1)
+        loaded = load_pretrained(back, path)
+    want = {n: p.detach().half().float() for n, p in sam.state_dict().items()}
+    roundtrip = loaded and all(torch.equal(p, want[n]) for n, p in back.state_dict().items())
+
+    imgs = torch.as_tensor(np.stack([d[0] for d in data[:batch]]), device=device)
+    boxes = torch.as_tensor(np.stack([d[1] for d in data[:batch]]), device=device)
+    masks = torch.as_tensor(np.stack([d[2] for d in data[:batch]]), device=device)
+    params = list(sam.parameters())
+
+    def grads():
+        with torch.enable_grad():
+            return torch.autograd.grad(sam_train._loss_fn(sam, imgs, boxes, masks), params)
+
+    g1, g2 = grads(), grads()
+    differ = [n for (n, _), a, b in zip(sam.named_parameters(), g1, g2) if not torch.equal(a, b)]
+    res = {"phase": "sam_train", "examples": len(data), "data_seconds": data_s,
+           "steps": steps, "batch": batch, "ms_per_step": ms_per_step,
+           "loss_first_10": float(L[:10].mean()), "loss_last_10": float(L[-10:].mean()),
+           "losses": L.tolist(), "save_load_bitwise": bool(roundtrip),
+           "gradients_bitwise_over_two_passes": not differ,
+           "gradients_not_bitwise": differ}
+    emit(res)
+    assert np.isfinite(L).all(), "non-finite SAM training loss"
+    assert res["loss_last_10"] < res["loss_first_10"], (res["loss_first_10"],
+                                                       res["loss_last_10"])
+    assert roundtrip, "save_fp16 / load_pretrained did not give the float16 parameters"
     return res
 
 
@@ -1970,6 +2071,211 @@ def tracking_phase(device, frames, classic, n_warm=16, n_timed=8):
     return res
 
 
+class SyncCounter:
+    """Counts the host syncs that `torch.cuda.set_sync_debug_mode("warn")`
+    reports while it is entered, by frame (the pipeline's per-module frame
+    calls, counted by wrapping `pipe._frame_modules`) and by stage: the
+    innermost function of `STAGES` on the warning's stack, else "other"
+    (the frame queue's thread among them), whose innermost lines of this
+    repository are counted in `other_where`."""
+
+    STAGES = ("_track_esikf", "_track", "slam_step", "_train_once", "add_frame_points",
+              "_maybe_grow_map")
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.frame = -1
+        self.counts = {}
+        self.other_where = {}
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        orig = self.pipe._frame_modules
+
+        def frame_modules(*a, **k):
+            self.frame += 1
+            return orig(*a, **k)
+
+        self.pipe._frame_modules = frame_modules
+        self._orig = orig
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing" not in str(message):
+                return shown(message, category, filename, lineno, file, line)
+            stack = traceback.extract_stack()[:-1]
+            stage = next((f.name for f in reversed(stack) if f.name in self.STAGES), "other")
+            per = self.counts.setdefault(self.frame, {})
+            per[stage] = per.get(stage, 0) + 1
+            if stage == "other":
+                ours = [f for f in stack if "sags_tpu_torch" in f.filename
+                        or f.filename.endswith("chip_smoke.py")]
+                key = " < ".join(f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno}"
+                                 for f in reversed(ours[-2:]))
+                self.other_where[key] = self.other_where.get(key, 0) + 1
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        self.pipe._frame_modules = self._orig
+
+    def per_frame(self, n_frames):
+        return [self.counts.get(i, {}) for i in range(n_frames)]
+
+
+def esikf_loop(device, frames, cfg, n_warm, n_timed):
+    """`SLAMPipeline.run` of `cfg` over `frames[:n_warm + n_timed]`: host syncs
+    counted over the warm frames, the last `n_timed` timed by CUDA events,
+    the ESIKF updates' matches and photometric residuals recorded."""
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.ops import _build, esikf
+    from sags_tpu_torch.slam.pipeline import SLAMPipeline
+    from sags_tpu_torch.utils.traj import ate_rmse
+
+    n_frames = n_warm + n_timed
+    pipe = SLAMPipeline(cfg, point_budget=cfg.tracking.max_points, rng_seed=0, device=device)
+    scans, photos = [], []
+
+    def keeping(fn, kept, field):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            kept.append(getattr(out, field))
+            return out
+        return wrapped
+
+    _build.reset_launch_counts()
+    with swapped(esikf, "scan_update", keeping(esikf.scan_update, scans, "n_matched")), \
+            swapped(esikf, "photo_update", keeping(esikf.photo_update, photos, "n_used")):
+        with SyncCounter(pipe) as syncs:
+            warm = pipe.run(frames[:n_warm], post_train=0)
+            torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        timed = pipe.run(frames[n_warm:n_frames], post_train=0)
+        end.record()
+        torch.cuda.synchronize()
+    frame_ms = start.elapsed_time(end) / n_timed
+    launches = {k.symbol: k.launches for k in _build.kernels()}
+    poses = np.concatenate([warm.poses_est, timed.poses_est])
+    gt = np.concatenate([warm.poses_gt, timed.poses_gt])
+    ate, err = ate_rmse(poses, gt, align=False)
+    losses = np.asarray(timed.losses)
+    third = max(1, len(losses) // 3)
+    res = {"backend": cfg.tracking.backend, "esikf_visual": cfg.tracking.esikf_visual,
+           "per_module": not pipe._use_fused, "frames": n_frames,
+           "ms_per_frame": frame_ms, "ate_m": ate, "error_m_per_frame": np.asarray(err).tolist(),
+           "loss_first_third": float(losses[:third].mean()),
+           "loss_last_third": float(losses[-third:].mean()),
+           "losses_finite": bool(np.isfinite(losses).all()), "metrics_rows": len(losses),
+           "host_syncs_per_warm_frame": syncs.per_frame(n_warm),
+           "host_syncs_other_where": syncs.other_where,
+           "lm_iterations": pipe.lm_log, "launches": launches,
+           "launches_per_frame": {k: launches[k] / n_frames for k in SLAM_KERNELS}}
+    if scans:
+        res["n_matched_per_update"] = torch.stack(scans).tolist()
+    if photos:
+        res["n_used_per_update"] = torch.stack(photos).tolist()
+    if pipe._track_map is not None:
+        sm = pipe._track_map
+        res["surfel_voxels"] = int((sm.keys < esikf._SURFEL_KEY_MAX).sum())
+        res["surfel_capacity"] = int(sm.keys.shape[0])
+        res["surfel_overflow"] = int(sm.overflow)
+    return pipe, res
+
+
+def surfel_fold_bitwise(pipe, frame) -> bool:
+    """One fold of `frame`'s scan at the filter's pose into the loop's final
+    surfel map, twice: every field bitwise equal."""
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.ops import esikf
+
+    dev = pipe.device
+    scan = torch.as_tensor(frame.scan, device=dev)
+    world = scan @ pipe._esikf.R.T + pipe._esikf.p
+    mask = torch.ones(scan.shape[0], dtype=torch.bool, device=dev)
+    intens = torch.as_tensor(np.asarray(frame.colors, np.float32).mean(-1), device=dev)
+    a, b = (esikf.surfel_map_update(pipe._track_map, world, mask, intensity=intens)
+            for _ in range(2))
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("keys", "n", "sum_p", "sum_pp", "sum_i", "overflow"))
+
+
+def esikf_phase(device, frames, classic, n_warm=16, n_timed=8):
+    """The per-module front-end at the tracking cell with IMU (loops (a)
+    LiDAR-inertial ESIKF, (b) LiDAR-inertial-visual ESIKF, (c) per-module
+    "gicp"); see the module docstring's phase 9. Returns each loop's
+    launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from sags_tpu_torch.utils.traj import ate_rmse
+
+    n_frames = n_warm + n_timed
+    # the IMU samples draw nothing from the dataset's stream: these frames
+    # are the ones `imu_substeps=IMU_SUBSTEPS` yields
+    imu_ds = slam_dataset(device, len(frames), imu_substeps=IMU_SUBSTEPS)
+    frames = [dataclasses.replace(f, imu=imu_ds.imu_between(i) if i else None)
+              for i, f in enumerate(frames[:n_frames])]
+    gt = np.stack([f.pose for f in frames])
+    ate_classic, _ = ate_rmse(classic["poses"][:n_frames], gt, align=False)
+    loops, pipes = {}, {}
+    for name, cfg in (("esikf_li", slam_config(tracking="esikf")),
+                      ("esikf_liv", slam_config(tracking="esikf", esikf_visual=True)),
+                      ("gicp_per_module", slam_config(tracking="gicp", fused_frontend=False))):
+        pipes[name], loops[name] = esikf_loop(device, frames, cfg, n_warm, n_timed)
+    a = pipes["esikf_li"]
+    fwd, bwd = loop_fused_check(device, a, a.keyframes[-1].camera)
+    fold_bitwise = surfel_fold_bitwise(a, frames[-1])
+    refs = {"esikf_li": REFERENCE_ESIKF_LI_ATE_M, "esikf_liv": REFERENCE_ESIKF_LIV_ATE_M,
+            "gicp_per_module": REFERENCE_GICP_PER_MODULE_ATE_M}
+    res = {"phase": "esikf", "frames": n_frames, "imu_substeps": IMU_SUBSTEPS,
+           "classic_ms_per_frame": classic["ms_per_frame"],
+           "classic_ate_m_same_frames": ate_classic,
+           "reference_ate_m": refs, **loops, "surfel_fold_bitwise": fold_bitwise,
+           "composite_fused_at_esikf_loop": fwd, "composite_fused_bwd_at_esikf_loop": bwd}
+    emit(res)
+    for name, r in loops.items():
+        assert r["losses_finite"], f"{name}: non-finite loss"
+        assert r["per_module"], f"{name} ran the fused front-end"
+        assert r["metrics_rows"] == n_frames, (name, r["metrics_rows"])
+        assert r["loss_last_third"] < r["loss_first_third"], (name, r["loss_first_third"],
+                                                              r["loss_last_third"])
+        for sym in SLAM_KERNELS:
+            assert r["launches"][sym] > 0, f"{sym} never launched in the {name} loop"
+        # one packed fetch a training step (every frame trains)
+        for i, c in enumerate(r["host_syncs_per_warm_frame"]):
+            assert c.get("_train_once", 0) == 1, (name, i, c)
+    for name, ref in refs.items():
+        r = loops[name]
+        assert r["ate_m"] <= 1.05 * ref, f"{name} ATE {r['ate_m']} m, reference {ref} m"
+    for name in ("esikf_li", "esikf_liv"):
+        # steady state: the surfel map is live after frame 0, the bootstrap
+        # runs on frame 1; from frame 2 on the tracker reads nothing
+        for i, c in enumerate(loops[name]["host_syncs_per_warm_frame"][2:], start=2):
+            assert c.get("_track_esikf", 0) == 0, (name, i, c)
+    assert fold_bitwise, "surfel_map_update not bitwise repeatable"
+    assert_loop_fused(fwd, bwd, "the esikf loop")
+    return {name: r["launches"] for name, r in loops.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2010,6 +2316,7 @@ def main() -> int:
     _, kf_images, sem = semantic_phase(device, frames, dict(classic, poses=poses, pipe=pipe))
     sam_phase(device, kf_images, frames, pipe.cfg.semantics.num_classes)
     tracking_phase(device, frames, dict(classic, poses=poses, lm_log=pipe.lm_log))
+    module_launches = esikf_phase(device, frames, dict(classic, poses=poses))
 
     # (source, TPU kernel, C symbol, the path whose launches count, frames on it)
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -2062,6 +2369,8 @@ def main() -> int:
             **({"empty_kernel_ms": r["empty_ms"],
                 "torch_full_ms": r["full_ms"], "semantic_loop_launches": sem["launches"][sym]}
                if name == "fill_table" else {}),
+            **({"per_module_loops_launches": {k: v[sym] for k, v in module_launches.items()}}
+               if sym in SLAM_KERNELS else {}),
         })
     emit({"tile_capacity": K_final,
           "by_tile_capacity": {K: {n: {"ms": kres[K][n]["ms"], "plain_ms": kres[K][n]["plain_ms"]}

@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["device_constant", "resolve_device"]
+
+_CONSTANTS = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,3 +32,14 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def device_constant(key, make, device) -> torch.Tensor:
+    """The tensor `make()` (a host array) on `device`, uploaded once per `key`
+    and device: an upload from pageable memory waits for the device, which a
+    loop that reads nothing on the host cannot afford. Callers must not
+    write to it."""
+    full = (key, str(device))
+    if full not in _CONSTANTS:
+        _CONSTANTS[full] = torch.as_tensor(make(), device=device)
+    return _CONSTANTS[full]

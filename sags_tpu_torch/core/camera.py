@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from sags_tpu_torch import device_constant
+
 
 def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
@@ -91,7 +93,8 @@ def make_camera(R, t, width: int, height: int, fovx: float, fovy: float,
     R = torch.as_tensor(R, dtype=torch.float32, device=device)
     t = torch.as_tensor(t, dtype=torch.float32, device=device)
     V = world_to_view(R, t)
-    P = torch.as_tensor(projection_matrix(znear, zfar, fovx, fovy), device=device)
+    P = device_constant(("projection", znear, zfar, fovx, fovy),
+                        lambda: projection_matrix(znear, zfar, fovx, fovy), device)
     return Camera(width=int(width), height=int(height), fovx=float(fovx),
                   fovy=float(fovy), world_view=V, full_proj=P @ V,
                   cam_center=t, znear=float(znear), zfar=float(zfar))

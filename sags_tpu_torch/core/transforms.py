@@ -125,13 +125,14 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 
 def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Homogeneous [..., 4, 4] from R [..., 3, 3] and t [..., 3]."""
+    """Homogeneous [..., 4, 4] from R [..., 3, 3] and t [..., 3]. Built by
+    concatenation: assigning a Python scalar into a CUDA tensor uploads it
+    and waits for the device."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    top = torch.cat([R.expand(batch + (3, 3)),
+                     t.to(R.dtype).expand(batch + (3,))[..., None]], dim=-1)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:

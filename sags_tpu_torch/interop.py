@@ -12,7 +12,11 @@ Param names are `mapping.gaussian_map.PARAM_FIELDS` and ("weight", "bias").
 
 `sam_params_from_numpy` carries a flax SAM parameter tree (the JAX
 package's `SAM.params`, or a weight pickle read by `models.sam.read_params`)
-into the `state_dict` of the port's `models.sam.SAM`.
+into the `state_dict` of the port's `models.sam.SAM`; `sam_params_to_numpy`
+is its inverse, the tree that `models.sam_train.save_fp16` pickles.
+
+`esikf_state_from_numpy` and `surfel_map_from_numpy` build the ESIKF
+filter state and its surfel map (`ops.esikf`) from `{field: array}`.
 
 This module imports no JAX: the export from JAX arrays is the caller's.
 """
@@ -24,6 +28,8 @@ import torch
 
 from sags_tpu_torch.mapping import gaussian_map as gm
 from sags_tpu_torch.models.classifier import ClassifierParams
+from sags_tpu_torch.models.sam import SAMParams
+from sags_tpu_torch.ops.esikf import ESIKFState, SurfelMap
 from sags_tpu_torch.slam.step import SLAMState
 from sags_tpu_torch.utils.adam import AdamState
 from sags_tpu_torch.utils.draws import TorchDraws
@@ -78,6 +84,19 @@ def state_to_numpy(state: SLAMState) -> dict:
         "cls_opt": _adam_to(state.cls_opt_state, _CLS_FIELDS),
         "step": int(state.step),
     }
+
+
+def esikf_state_from_numpy(tree: dict, device) -> ESIKFState:
+    """The filter state on `device` from `{field: array}` (R, p, v, bg, ba,
+    g, P)."""
+    return ESIKFState(*(_t(tree[f], device) for f in ESIKFState._fields))
+
+
+def surfel_map_from_numpy(tree: dict, device) -> SurfelMap:
+    """The surfel map on `device` from `{field: array}`; `resolution` a
+    float."""
+    return SurfelMap(**{f: float(tree[f]) if f == "resolution" else _t(tree[f], device)
+                        for f in SurfelMap._fields})
 
 
 def _dense(p: dict, prefix: str) -> dict:
@@ -147,3 +166,75 @@ def sam_params_from_numpy(params) -> dict:
     sd.update(_dense(dec["Dense_0"], "mask_decoder.hyper2"))
     sd.update(_dense(dec["Dense_1"], "mask_decoder.hyper1"))
     return {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in sd.items()}
+
+
+def _sd(sd: dict, key: str) -> np.ndarray:
+    v = sd[key]
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _dense_to(sd: dict, prefix: str) -> dict:
+    return {"kernel": _sd(sd, f"{prefix}.weight").T, "bias": _sd(sd, f"{prefix}.bias")}
+
+
+def _layer_norm_to(sd: dict, prefix: str) -> dict:
+    return {"scale": _sd(sd, f"{prefix}.weight"), "bias": _sd(sd, f"{prefix}.bias")}
+
+
+def _attention_to(sd: dict, prefix: str, heads: int) -> dict:
+    out = {}
+    for name in ("query", "key", "value"):
+        w = _sd(sd, f"{prefix}.{name}.weight")  # [heads·hd, C]
+        out[name] = {"kernel": w.T.reshape(w.shape[1], heads, -1),
+                     "bias": _sd(sd, f"{prefix}.{name}.bias").reshape(heads, -1)}
+    w = _sd(sd, f"{prefix}.out.weight")  # [C, heads·hd]
+    out["out"] = {"kernel": w.T.reshape(heads, -1, w.shape[0]),
+                  "bias": _sd(sd, f"{prefix}.out.bias")}
+    return out
+
+
+def _conv_transpose_to(sd: dict, prefix: str) -> dict:
+    w = _sd(sd, f"{prefix}.weight")  # [in, out, kh, kw]
+    return {"kernel": w.transpose(2, 3, 0, 1)[::-1, ::-1], "bias": _sd(sd, f"{prefix}.bias")}
+
+
+def sam_params_to_numpy(sd: dict, num_heads: int = 4) -> SAMParams:
+    """The flax parameter tree `SAMParams(encoder, prompt, decoder)`, each
+    `{"params": {...}}` of float32 numpy arrays, from the port's
+    `SAM.state_dict()`: the inverse of `sam_params_from_numpy`."""
+    enc = {"patch": {"kernel": _sd(sd, "encoder.patch.weight").transpose(2, 3, 1, 0),
+                     "bias": _sd(sd, "encoder.patch.bias")},
+           "pos_embed": _sd(sd, "encoder.pos_embed")}
+    depth = len({k.split(".")[2] for k in sd if k.startswith("encoder.blocks.")})
+    for i in range(depth):
+        b = f"encoder.blocks.{i}"
+        enc[f"LayerNorm_{2 * i}"] = _layer_norm_to(sd, f"{b}.ln1")
+        enc[f"MultiHeadDotProductAttention_{i}"] = _attention_to(sd, f"{b}.attn", num_heads)
+        enc[f"LayerNorm_{2 * i + 1}"] = _layer_norm_to(sd, f"{b}.ln2")
+        enc[f"Dense_{2 * i}"] = _dense_to(sd, f"{b}.fc1")
+        enc[f"Dense_{2 * i + 1}"] = _dense_to(sd, f"{b}.fc2")
+    enc[f"LayerNorm_{2 * depth}"] = _layer_norm_to(sd, "encoder.ln_out")
+    pr = {"pe_gaussian": _sd(sd, "prompt_encoder.pe_gaussian"),
+          "corner_embed": _sd(sd, "prompt_encoder.corner_embed")}
+    dec = {"mask_tokens": _sd(sd, "mask_decoder.mask_tokens")}
+    n_blocks = len({k.split(".")[2] for k in sd if k.startswith("mask_decoder.blocks.")})
+    for j in range(n_blocks):
+        b = f"mask_decoder.blocks.{j}"
+        p = {f"MultiHeadDotProductAttention_{i}": _attention_to(sd, f"{b}.{name}", num_heads)
+             for i, name in enumerate(("self_attn", "cross_t2i", "cross_i2t"))}
+        p.update({f"LayerNorm_{i}": _layer_norm_to(sd, f"{b}.ln{i}") for i in range(4)})
+        p["Dense_0"] = _dense_to(sd, f"{b}.fc1")
+        p["Dense_1"] = _dense_to(sd, f"{b}.fc2")
+        dec[f"TwoWayBlock_{j}"] = p
+    dec["ConvTranspose_0"] = _conv_transpose_to(sd, "mask_decoder.up1")
+    dec["LayerNorm_0"] = _layer_norm_to(sd, "mask_decoder.up_ln")
+    dec["ConvTranspose_1"] = _conv_transpose_to(sd, "mask_decoder.up2")
+    dec["Dense_0"] = _dense_to(sd, "mask_decoder.hyper2")
+    dec["Dense_1"] = _dense_to(sd, "mask_decoder.hyper1")
+
+    def f32(t):
+        if isinstance(t, dict):
+            return {k: f32(v) for k, v in t.items()}
+        return np.ascontiguousarray(t, dtype=np.float32)
+
+    return SAMParams(*({"params": f32(t)} for t in (enc, pr, dec)))

@@ -13,7 +13,7 @@ import torch
 from sags_tpu_torch import resolve_device
 from sags_tpu_torch.core.camera import make_camera
 from sags_tpu_torch.core.config import RasterizeConfig
-from sags_tpu_torch.core.transforms import LIDAR_TO_CAM, so3_exp
+from sags_tpu_torch.core.transforms import LIDAR_TO_CAM, so3_exp, so3_log
 
 
 @dataclasses.dataclass
@@ -36,12 +36,14 @@ GT_RASTER = RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=512, chunk=
 class SyntheticDataset:
     """Procedural LIVO-style corridor sequence with exact ground truth
     (`sags_tpu.io.datasets.SyntheticDataset`: same world, trajectory, point
-    sampling and numpy RNG stream)."""
+    sampling and numpy RNG stream). `imu_substeps` > 0 gives every frame but
+    the first `imu_substeps` IMU samples over the interval since the last
+    (`imu_between`), which draw nothing from that stream."""
 
     def __init__(self, n_frames=20, width=160, height=120, n_world=4096,
                  pts_per_frame=2048, seed=0, fovx=1.2, fovy=1.0,
-                 max_range=8.0, step=0.4, clutter=0.0, frame_dt=0.1,
-                 pose_free=False, texture=0.0,
+                 max_range=8.0, step=0.4, clutter=0.0, imu_substeps=0,
+                 frame_dt=0.1, pose_free=False, texture=0.0,
                  lidar_frame=False, device=None):
         self.device = resolve_device(device)
         self.pose_free = pose_free
@@ -52,6 +54,7 @@ class SyntheticDataset:
         self.pts_per_frame = pts_per_frame
         self.max_range = max_range
         self.step = step
+        self.imu_substeps = imu_substeps
         self.frame_dt = frame_dt
         rng = np.random.default_rng(seed)
         length = max(20.0, n_frames * step + max_range)
@@ -147,6 +150,33 @@ class SyntheticDataset:
         labels = np.argmax(obj, axis=0).astype(np.int32)
         return np.where(alpha > 0.5, labels, 0)
 
+    def imu_between(self, i: int) -> np.ndarray:
+        """IMU samples [M, 7] (gyro, accel, dt) over (i-1, i] from the analytic
+        trajectory: a constant body rate per substep, and the specific force
+        f = Rᵀ(a_w − g) with a_w by central differences about the substep's
+        midpoint (`sags_tpu/io/datasets.py:455-481`). Host numpy, with the
+        rotation log of this package on the CPU."""
+        M = self.imu_substeps
+        dt = self.frame_dt / M
+        g_w = np.array([0.0, 0.0, -9.81])
+        out = np.zeros((M, 7), np.float32)
+        for s in range(M):
+            f0 = (i - 1) + s / M
+            f1 = (i - 1) + (s + 1) / M
+            T0, T1 = self.pose(f0), self.pose(f1)
+            w = so3_log(torch.from_numpy(T0[:3, :3].T @ T1[:3, :3])).numpy() / dt
+            fm = 0.5 * (f0 + f1)
+            h = 0.5 / M
+            p_m = self.pose(fm)[:3, 3]
+            p_l = self.pose(fm - h)[:3, 3]
+            p_r = self.pose(fm + h)[:3, 3]
+            a_w = (p_r - 2 * p_m + p_l) / (h * self.frame_dt) ** 2
+            f_body = T0[:3, :3].T @ (a_w - g_w)
+            out[s, 0:3] = w
+            out[s, 3:6] = f_body
+            out[s, 6] = dt
+        return out
+
     def __len__(self):
         return self.n_frames
 
@@ -155,6 +185,7 @@ class SyntheticDataset:
             pose = self.pose(i)
             cam_pose = self._cam_pose(i)
             img, depth = self.render_gt(i)
+            imu = self.imu_between(i) if (self.imu_substeps and i > 0) else None
             rel = (self.world_xyz - cam_pose[:3, 3]) @ cam_pose[:3, :3]
             vis = (rel[:, 2] > 0.5) & (np.linalg.norm(rel, axis=-1) < self.max_range)
             idx = np.nonzero(vis)[0]
@@ -169,5 +200,6 @@ class SyntheticDataset:
                 pose=None if self.pose_free else pose,
                 timestamp=i * self.frame_dt,
                 depth=depth,
+                imu=imu,
                 scan=rel[sel].astype(np.float32),
             )

@@ -31,16 +31,19 @@ class DeviceFrame(NamedTuple):
     scan_mask: Optional[torch.Tensor] = None  # [S]
 
 
+def upload(a, device) -> torch.Tensor:
+    """A host array as a tensor on `device`: on CUDA through pinned memory
+    with a `non_blocking` copy, which does not wait for the host."""
+    device = torch.device(device)
+    t = torch.from_numpy(np.array(a))  # own, writable, contiguous copy
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def stage_frame(frame: Frame, point_budget: int, device,
                 scan_budget: Optional[int] = None) -> DeviceFrame:
-    device = torch.device(device)
-    pin = device.type == "cuda"
-
-    def put(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.array(a))  # own, writable, contiguous copy
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=pin)
+    put = lambda a: upload(a, device)
 
     sensor = frame.pose is None
     src = frame.scan if sensor else frame.points

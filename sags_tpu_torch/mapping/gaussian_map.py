@@ -125,7 +125,7 @@ def add_points(m: GaussianMap, points, colors, mask, draws, quats=None,
     log_scales = torch.log(torch.clamp(scales, min=1e-12))
     f_dc = shlib.rgb_to_sh(colors)
     obj_dc = shlib.rgb_to_sh(draws.uniform((B, m.obj_dc.shape[1])))
-    opl = inverse_sigmoid(torch.tensor(initial_opacity, dtype=torch.float32, device=dev))
+    opl = inverse_sigmoid(torch.full((), initial_opacity, dtype=torch.float32, device=dev))
     if trackable is None:
         trackable = torch.zeros(B, dtype=torch.bool, device=dev)
 
@@ -134,10 +134,20 @@ def add_points(m: GaussianMap, points, colors, mask, draws, quats=None,
     ok = mask & (slot < N)
     n_added = torch.sum(ok.to(torch.int32))
     n_dropped = torch.sum(mask.to(torch.int32)) - n_added
-    idx = slot[ok].long()
+    # No host read: the j-th kept row (in batch order) goes to slot count + j
+    # (at most N rows can be kept). Every j names a distinct slot,
+    # (count + j) mod N; a j past the kept rows rewrites its slot with the
+    # slot's own value (a wrapped one lies below count, never on a kept row).
+    J = min(B, N)
+    src = torch.argsort((~ok).to(torch.int32), stable=True)[:J]
+    j = torch.arange(J, device=dev)
+    live = j < n_added
+    dst = (m.count + j) % N
 
     def put(buf, val):
-        buf[idx] = val[ok] if val.dim() and val.shape[0] == B else val
+        v = val[src] if val.dim() and val.shape[0] == B else val
+        keep = live.reshape((J,) + (1,) * (buf.dim() - 1))
+        buf[dst] = torch.where(keep, v, buf[dst])
         return buf
 
     R = m.f_rest.shape[1]

@@ -22,7 +22,8 @@ flax computes it:
 Public functions keep the JAX package's layouts: images [B, H, W, 3],
 embeddings [B, G, G, C], boxes xyxy in canvas pixels.
 
-Weights: `load_pretrained` reads the JAX package's shipped float16 pickle
+Weights: random with flax's initialisers (`init_params`), or trained:
+`load_pretrained` reads the JAX package's shipped float16 pickle
 (`sags_tpu/models/weights/sam_synth.pkl`) in place, as data, through a
 restricted unpickler that maps the pickle's `SAMParams` to this module's own
 NamedTuple; `interop.sam_params_from_numpy` turns the flax tree into this
@@ -281,16 +282,60 @@ def read_params(path: str) -> SAMParams:
     return SAMParams(*(f32(t) for t in tree))
 
 
-class SAM(nn.Module):
-    """Bundled encoder / prompt encoder / decoder on `device`."""
+# flax's default `lecun_normal`: a normal truncated at two standard deviations,
+# rescaled to variance 1/fan_in (this constant is the truncated unit normal's
+# standard deviation)
+_TRUNC_STD = 0.87962566103423978
 
-    def __init__(self, embed_dim: int = 160, img_size: int = 256, device=None):
+
+@torch.no_grad()
+def init_params(sam: "SAM", seed: int = 0) -> None:
+    """Random initialisation with the distributions flax gives the JAX
+    package's SAM (not its values: `jax.random` is not reproducible here):
+    kernels of dense, attention and convolution layers `lecun_normal` over
+    their fan-in, biases zero, layer norms one and zero, `pos_embed`,
+    `corner_embed` and `mask_tokens` normal(0.02), `pe_gaussian` normal(1).
+    Drawn on the CPU from `seed`, so every device gets the same values."""
+    g = torch.Generator().manual_seed(int(seed))
+
+    def lecun(t: torch.Tensor, fan_in: int) -> None:
+        x = torch.empty(t.shape)
+        nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=g)
+        t.copy_(x * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+
+    def normal(t: torch.Tensor, std: float) -> None:
+        t.copy_(torch.randn(t.shape, generator=g) * std)
+
+    for m in sam.modules():
+        if isinstance(m, nn.Linear):
+            lecun(m.weight, m.in_features)
+        elif isinstance(m, nn.Conv2d):
+            lecun(m.weight, m.weight[0].numel())  # [out, in, kh, kw]
+        elif isinstance(m, nn.ConvTranspose2d):
+            lecun(m.weight, m.weight.shape[0] * m.weight.shape[2] * m.weight.shape[3])
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+        if getattr(m, "bias", None) is not None:
+            m.bias.zero_()
+    normal(sam.encoder.pos_embed, 0.02)
+    normal(sam.prompt_encoder.pe_gaussian, 1.0)
+    normal(sam.prompt_encoder.corner_embed, 0.02)
+    normal(sam.mask_decoder.mask_tokens, 0.02)
+
+
+class SAM(nn.Module):
+    """Bundled encoder / prompt encoder / decoder on `device`, initialised
+    from `seed` (`init_params`)."""
+
+    def __init__(self, embed_dim: int = 160, img_size: int = 256, device=None,
+                 seed: int = 0):
         super().__init__()
         self.img_size = img_size
         self.encoder = ImageEncoder(embed_dim=embed_dim, img_size=img_size)
         self.prompt_encoder = PromptEncoder(embed_dim=embed_dim, grid=img_size // 16)
         self.mask_decoder = MaskDecoder(embed_dim=embed_dim)
         self.mask_threshold = MASK_THRESHOLD
+        init_params(self, seed)
         self.to(resolve_device(device))
         self.eval()
 

@@ -344,13 +344,16 @@ def scatter_rows(dGt: torch.Tensor, table: torch.Tensor, num_rows: int) -> torch
     dropped: `segment_reduce` sums a segment serially, and one segment of
     all the padding (a third of the table at the slice's operating point)
     took it 40 ms on an H100. The lengths sum to the row count by
-    construction, so the check that would sync the host is skipped."""
+    construction, so the check that would sync the host is skipped; they
+    are counted from the sorted ids by `searchsorted` (`bincount` reads its
+    input's maximum on the host)."""
     NT, CH, K = dGt.shape
     flat = table.reshape(-1).long()
     gid = torch.where(flat >= 0, flat, torch.full_like(flat, num_rows))
-    order = torch.argsort(gid, stable=True)
+    gid_s, order = torch.sort(gid, stable=True)
     rows = dGt.permute(0, 2, 1).reshape(-1, CH)[order]
-    lengths = torch.bincount(gid, minlength=num_rows + 1)
+    bounds = torch.searchsorted(gid_s, torch.arange(num_rows + 2, device=flat.device))
+    lengths = bounds[1:] - bounds[:-1]
     n_pad_segments = -(-flat.numel() // _PAD_SEGMENT)
     pad = lengths[num_rows] - _PAD_SEGMENT * torch.arange(
         n_pad_segments, device=flat.device)

@@ -251,7 +251,7 @@ def preprocess(means3d, opacities, scales, quats, camera: Camera,
 def _depth_quant(pre: Preprocessed) -> torch.Tensor:
     """16-bit depth quantization over the valid depth range."""
     depth = pre.depth.detach()
-    big = torch.tensor(3e38, dtype=torch.float32, device=depth.device)
+    big = torch.full((), 3e38, dtype=torch.float32, device=depth.device)
     dmin = torch.min(torch.where(pre.valid, depth, big))
     dmax = torch.max(torch.where(pre.valid, depth, -big))
     return torch.clamp(

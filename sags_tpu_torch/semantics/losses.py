@@ -39,9 +39,11 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
         flat = idx.reshape(-1)
-        order = torch.argsort(flat, stable=True)
+        flat_s, order = torch.sort(flat, stable=True)
         rows = grad.reshape(flat.numel(), -1)[order]
-        lengths = torch.bincount(flat, minlength=ctx.n_rows)
+        # each index's count from the sorted indices (no host read)
+        bounds = torch.searchsorted(flat_s, torch.arange(ctx.n_rows + 1, device=flat.device))
+        lengths = bounds[1:] - bounds[:-1]
         out = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0, unsafe=True)
         return out.reshape((ctx.n_rows,) + grad.shape[idx.dim():]), None
 

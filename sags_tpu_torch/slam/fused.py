@@ -7,8 +7,8 @@ Host-read scalars go to a device metrics ring that the pipeline drains every
 `metrics_interval` frames. Tracking modes: "gicp" and "vgicp" (scan-to-scan),
 "gicp_map" (scan-to-map against the map's trackable Gaussians once the
 pipeline finds the map anchored, scan-to-scan before), "none" (odometry
-poses consumed). The ESIKF tracker needs the per-module path, which is not
-ported.
+poses consumed). The ESIKF tracker runs on the per-module front-end
+(`slam/pipeline.py`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import List, NamedTuple
 
 import torch
 
+from sags_tpu_torch import device_constant
 from sags_tpu_torch.core.camera import Camera, focal2fov, make_camera
 from sags_tpu_torch.core.config import SLAMConfig
 from sags_tpu_torch.core.transforms import (LIDAR_TO_CAM, quat_to_rotmat, rotmat_to_quat,
@@ -72,13 +73,17 @@ def _n_trackable(m: gm.GaussianMap, cfg: SLAMConfig) -> torch.Tensor:
     return torch.sum(sel.to(torch.int32))
 
 
+def lidar_to_cam(device) -> torch.Tensor:
+    return device_constant("lidar_to_cam", lambda: LIDAR_TO_CAM, device)
+
+
 def _camera_at(T: torch.Tensor, cfg: SLAMConfig, H: int, W: int) -> Camera:
     cam_cfg = cfg.camera
     fovx = focal2fov(cam_cfg.fx * W / cam_cfg.width, W)
     fovy = focal2fov(cam_cfg.fy * H / cam_cfg.height, H)
     R = T[:3, :3]
     if cfg.lidar_axes:
-        R = R @ torch.as_tensor(LIDAR_TO_CAM, device=T.device)
+        R = R @ lidar_to_cam(T.device)
     return make_camera(R, T[:3, 3], W, H, fovx, fovy)
 
 
@@ -98,8 +103,8 @@ class FusedFrontend:
     def __init__(self, cfg: SLAMConfig, H: int, W: int, *, sensor_frame: bool):
         if cfg.tracking.backend not in self.MODES:
             raise NotImplementedError(
-                f"tracking backend {cfg.tracking.backend!r} is not ported yet "
-                f"(ported: {self.MODES}; esikf needs the per-module path)")
+                f"tracking backend {cfg.tracking.backend!r} has no fused front-end "
+                f"(fused: {self.MODES}); SLAMPipeline runs esikf on the per-module one")
         self.cfg = cfg
         self.H, self.W = H, W
         self.sensor_frame = sensor_frame

@@ -1,8 +1,23 @@
-"""Online SLAM pipeline, fused front-end (`sags_tpu.slam.pipeline` in torch):
-frame stream → track → map growth → keyframing → one training step per
-frame, with the metrics ring drained every `metrics_interval` frames, the
+"""Online SLAM pipeline (`sags_tpu.slam.pipeline` in torch): frame stream →
+track → map growth → keyframing → one training step per frame, the
 overflow-adaptive render capacities (with the windowed budget probe), and
 `evaluate`, the PSNR / SSIM / LPIPS of the map rendered at given poses.
+
+Two front-ends, as in the JAX package. The fused one (`slam/fused.py`, the
+default for "gicp", "vgicp", "gicp_map" and "none") writes each frame's
+scalars to a device metrics ring drained every `metrics_interval` frames.
+The per-module one (`fused_frontend=False`, and always for "esikf") calls
+the tracker, `add_frame_points` and `slam_step` one after the other and
+reads each training step's scalars in one packed fetch (`_train_once`). Its
+trackers: scan-to-scan "gicp" / "vgicp" from the identity, "gicp_map"
+against the map's trackable Gaussians from the last pose once anchored, and
+"esikf": IMU propagation (or a constant-position inflation of P), the
+iterated point-to-plane update against an incremental surfel map, the
+photometric update under `esikf_visual`, then the scan folded into the map
+at the estimated pose (`ops/esikf.py`); a scan-to-scan GICP on the first
+frame pair seeds pose and velocity (`esikf_bootstrap`). In steady state an
+ESIKF frame reads nothing on the host; the surfel count is probed once a
+frame until the map is live.
 
 With a mask generator (`semantics.geometric.GeometricMaskGenerator` or
 `semantics.masks.MaskGenerator`) a keyframe is split as in
@@ -17,8 +32,7 @@ anchored: `_map_anchored` flips when a frame's metrics row counts
 none after; `sags_tpu/slam/pipeline.py:634-642`), and is chosen on the host
 before each frame.
 
-Not ported yet (later slices): the per-module path (`fused_frontend=False`,
-the esikf tracker), meshes.
+Not ported yet (later slices): meshes.
 """
 
 from __future__ import annotations
@@ -33,11 +47,13 @@ import torch
 from sags_tpu_torch import resolve_device
 from sags_tpu_torch.core.camera import Camera, focal2fov, make_camera
 from sags_tpu_torch.core.config import SLAMConfig
-from sags_tpu_torch.core.transforms import LIDAR_TO_CAM
+from sags_tpu_torch.core.transforms import LIDAR_TO_CAM, se3_matrix
 from sags_tpu_torch.eval import metrics as eval_metrics
 from sags_tpu_torch.io.datasets import Frame
-from sags_tpu_torch.io.queue import FrameQueue
+from sags_tpu_torch.io.queue import FrameQueue, upload
 from sags_tpu_torch.mapping import gaussian_map as gm
+from sags_tpu_torch.ops import esikf
+from sags_tpu_torch.ops import gicp as gicp_ops
 from sags_tpu_torch.ops import rasterize as rz
 from sags_tpu_torch.semantics.association import DeviceInstanceAssociator
 from sags_tpu_torch.slam import fused as fused_mod
@@ -81,6 +97,14 @@ def _lattice256(peak) -> int:
     return -(-int(peak * 1.25) // 256) * 256
 
 
+def _pack_metrics(m: slam_step_mod.StepMetrics) -> torch.Tensor:
+    """The scalars the host reads after a training step, as one [8] float32
+    tensor: one fetch."""
+    return torch.stack([x.to(torch.float32).reshape(()) for x in (
+        m.loss, m.n_binned, m.overflow_tile, m.overflow_rect, m.overflow_window,
+        m.overflow_big, m.tile_peak, m.overflow_tile_live)])
+
+
 class SLAMPipeline:
     # frames a metrics snapshot ages before it is read
     _DRAIN_LAG = 2
@@ -90,8 +114,6 @@ class SLAMPipeline:
                  draws=None):
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
-        if not cfg.fused_frontend:
-            raise NotImplementedError("only the fused front-end is ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.point_budget = point_budget
@@ -123,6 +145,15 @@ class SLAMPipeline:
         self._map_anchored = False
         self.anchored_at: Optional[int] = None  # first frame tracked scan-to-map
         self._n_frames = 0  # frames tracked over every `run`
+        # per-module front-end: (scan, mask, covs) of the last scan, whose
+        # covariances serve as the next frame's target; the accumulated pose
+        self._prev_scan = None
+        self._eye4 = torch.eye(4, device=self.device)
+        self._track_T = self._eye4
+        self._esikf: Optional[esikf.ESIKFState] = None
+        self._track_map: Optional[esikf.SurfelMap] = None  # the filter's surfel map
+        self._esikf_boot = None  # (scan, mask, timestamp) of the first frame
+        self._surfels_live = False  # the surfel map holds a voxel (monotone)
 
     # ------------------------------------------------------------------
     def _maybe_grow_map(self, incoming: int) -> None:
@@ -285,6 +316,215 @@ class SLAMPipeline:
             self.state.map.xyz, self.state.map.active, mask, pose, (fx, fy, cx, cy),
             used_labels=getattr(self.mask_generator, "used_labels", None))
 
+    # -- per-module front-end --------------------------------------------
+    @property
+    def _use_fused(self) -> bool:
+        return (self.cfg.fused_frontend
+                and self.cfg.tracking.backend in fused_mod.FusedFrontend.MODES)
+
+    def _scan_covs(self, scan, mask) -> torch.Tensor:
+        g = self.cfg.gicp
+        return gicp_ops.estimate_covariances(scan, mask, g.k_correspondences,
+                                             g.knn_max_distance, g.regularization).covs
+
+    def _align(self, align, *args, **kw):
+        res = align(*args, **kw)
+        self.lm_log.append((res.iterations, res.lm_iterations))
+        return res
+
+    def _track(self, frame: Frame, df) -> torch.Tensor:
+        """The frame's pose on the device (`sags_tpu/slam/pipeline.py:143-210`).
+        "none" takes the odometry pose; the trackers read `frame.scan`, or,
+        without one, the world points brought back through the frame's pose,
+        padded to `tracking.max_points`."""
+        mode = self.cfg.tracking.backend
+        if mode == "none":
+            if frame.pose is None:
+                raise ValueError("tracking.backend='none' consumes odometry poses, but "
+                                 "this frame carries none; use a tracking backend")
+            return df.pose
+        if frame.scan is not None:
+            scan = np.asarray(frame.scan, np.float32)
+        else:
+            if frame.pose is None:
+                raise ValueError("frame has neither scan nor pose")
+            Tw = np.asarray(frame.pose, np.float32)
+            scan = (frame.points - Tw[:3, 3]) @ Tw[:3, :3]
+        budget = self.cfg.tracking.max_points
+        n = min(len(scan), budget)
+        scan_p = np.zeros((budget, 3), np.float32)
+        scan_p[:n] = scan[:n]
+        msk = np.arange(budget) < n
+
+        if mode == "esikf":
+            # the per-point intensity rides along when the frame's colours
+            # are aligned with its scan sample (the synthetic data's are)
+            intens = None
+            if frame.colors is not None and len(frame.colors) == len(scan):
+                iv = np.asarray(frame.colors, np.float32).mean(-1)
+                intens = np.zeros(budget, np.float32)
+                intens[:n] = iv[:n]
+            return self._track_esikf(scan_p, msk, frame.imu, frame.timestamp,
+                                     intens=intens, image=df.image)
+        scan_d, msk_d = upload(scan_p, self.device), upload(msk, self.device)
+        if mode == "gicp_map":
+            return self._track_gicp_map(scan_d, msk_d)
+        covs_d = self._scan_covs(scan_d, msk_d)
+        if self._prev_scan is None:
+            self._prev_scan = (scan_d, msk_d, covs_d)
+            return self._track_T
+        prev_p, prev_m, prev_c = self._prev_scan
+        align = gicp_ops.vgicp_align if mode == "vgicp" else gicp_ops.gicp_align
+        res = self._align(align, scan_d, prev_p, msk_d, prev_m, self._eye4, self.cfg.gicp,
+                          source_covs=covs_d, target_covs=prev_c)
+        self._track_T = self._track_T @ res.T
+        self._prev_scan = (scan_d, msk_d, covs_d)
+        return self._track_T
+
+    def _track_gicp_map(self, scan_d, msk_d) -> torch.Tensor:
+        """Scan-to-map GICP against the map's trackable Gaussians from the
+        last pose, once the map is anchored (`anchor_min_points`; one scalar
+        fetch a frame until then); scan-to-scan before
+        (`sags_tpu/slam/pipeline.py:272-305`)."""
+        tcfg = self.cfg.tracking
+        tgt, tcov, tmask, n_sel = gm.trackable_subset(self.state.map, tcfg.opacity_threshold,
+                                                      tcfg.max_points)
+        if not self._map_anchored and int(n_sel) >= tcfg.anchor_min_points:
+            self._map_anchored = True
+            self.anchored_at = self._n_frames
+        covs_d = self._scan_covs(scan_d, msk_d)
+        if not self._map_anchored:
+            if self._prev_scan is not None:
+                prev_p, prev_m, prev_c = self._prev_scan
+                res = self._align(gicp_ops.gicp_align, scan_d, prev_p, msk_d, prev_m,
+                                  self._eye4, self.cfg.gicp, source_covs=covs_d,
+                                  target_covs=prev_c)
+                self._track_T = self._track_T @ res.T
+            self._prev_scan = (scan_d, msk_d, covs_d)
+            return self._track_T
+        res = self._align(gicp_ops.gicp_align, scan_d, tgt, msk_d, tmask, self._track_T,
+                          self.cfg.gicp, source_covs=covs_d, target_covs=tcov)
+        self._track_T = res.T
+        self._prev_scan = (scan_d, msk_d, covs_d)
+        return self._track_T
+
+    def _track_esikf(self, scan_p: np.ndarray, msk: np.ndarray,
+                     imu: Optional[np.ndarray] = None, timestamp: Optional[float] = None,
+                     intens: Optional[np.ndarray] = None,
+                     image: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One ESIKF frame (`sags_tpu/slam/pipeline.py:307-408`): propagate,
+        update against the surfel map (and the image), fold the scan in at
+        the estimated pose. `image` is the staged [3,H,W] device image."""
+        dev = self.device
+        tcfg = self.cfg.tracking
+        scan_d, msk_d = upload(scan_p, dev), upload(msk, dev)
+        if self._esikf is None:
+            self._esikf = esikf.init_state(device=dev)
+            self._track_map = esikf.surfel_map_init(
+                resolution=tcfg.downsample_resolution * 3, capacity=8192, device=dev)
+            if tcfg.esikf_bootstrap:
+                self._esikf_boot = (scan_d, msk_d, timestamp)
+        elif self._esikf_boot is not None:
+            # velocity bootstrap: the filter starts at v = 0, so a platform
+            # already moving drifts until the cross-covariance learns v. One
+            # scan-to-scan GICP on the first frame pair (no covariances
+            # given: estimated) seeds pose and velocity.
+            prev_p, prev_m, t0 = self._esikf_boot
+            self._esikf_boot = None
+            delta = self._align(gicp_ops.gicp_align, scan_d, prev_p, msk_d, prev_m,
+                                self._eye4, self.cfg.gicp).T
+            st = self._esikf
+            dt = (timestamp - t0) if (timestamp is not None and t0 is not None
+                                      and timestamp > t0) else None
+            v = delta[:3, 3] / dt if dt else st.v
+            self._esikf = st._replace(R=delta[:3, :3], p=delta[:3, 3], v=v)
+        if imu is not None and len(imu):
+            imu_d = upload(np.asarray(imu, np.float32), dev)
+            self._esikf = esikf.propagate(self._esikf, imu_d[:, 0:3], imu_d[:, 3:6],
+                                          imu_d[:, 6])
+        else:
+            # constant-position motion model: inflate P each frame
+            q = torch.cat([torch.full((3,), 2e-3, device=dev), torch.full((3,), 4e-2, device=dev),
+                           torch.full((3,), 1e-4, device=dev), torch.full((9,), 1e-8, device=dev)])
+            self._esikf = self._esikf._replace(P=self._esikf.P + torch.diag(q))
+        vm = esikf.surfel_map_voxels(self._track_map)
+        if not self._surfels_live and int(vm.n_voxels) > 0:
+            self._surfels_live = True  # the voxel count only grows
+        if self._surfels_live:
+            out = esikf.scan_update(self._esikf, scan_d, msk_d, vm,
+                                    num_iters=tcfg.esikf_update_iters,
+                                    min_planarity=tcfg.esikf_min_planarity)
+            self._esikf = out.state
+            if tcfg.esikf_visual and image is not None:
+                # the visual leg after the LiDAR one (FAST-LIVO2's order);
+                # under lidar_axes the filter tracks the LiDAR body, and the
+                # camera-from-body rotation enters the projection as R_ext
+                apts, aint, aok = esikf.surfel_map_anchors(self._track_map)
+                H, W = image.shape[1:]
+                cam_cfg = self.cfg.camera
+                self._esikf = esikf.photo_update(
+                    self._esikf, apts, aint, aok, image,
+                    cam_cfg.fx * W / cam_cfg.width, cam_cfg.fy * H / cam_cfg.height,
+                    cam_cfg.cx * W / cam_cfg.width, cam_cfg.cy * H / cam_cfg.height,
+                    meas_noise=tcfg.esikf_photo_noise, num_iters=tcfg.esikf_photo_iters,
+                    R_ext=fused_mod.lidar_to_cam(dev) if self.cfg.lidar_axes else None).state
+        R, p = self._esikf.R, self._esikf.p
+        self._track_map = esikf.surfel_map_update(
+            self._track_map, scan_d @ R.T + p, msk_d,
+            intensity=None if intens is None else upload(intens, dev))
+        return se3_matrix(R, p)
+
+    def _train_once(self, kf: Keyframe) -> slam_step_mod.StepMetrics:
+        """One training step on keyframe `kf`; its scalars come to the host
+        in one packed fetch and drive the capacity adaptation."""
+        self.state, metrics = slam_step_mod.slam_step(self.state, kf.camera, kf.image,
+                                                      kf.objects, self.cfg)
+        vals = _pack_metrics(metrics).cpu().numpy()
+        self.losses.append(float(vals[0]))
+        self.train_iter += 1
+        overflow = [int(vals[i]) for i in (2, 3, 4, 5)]
+        live = int(vals[7])
+        self._maybe_grow_capacity(_HostMetrics(
+            loss=float(vals[0]), n_binned=int(vals[1]), overflow_tile=overflow[0],
+            overflow_rect=overflow[1], overflow_window=overflow[2],
+            overflow_big=overflow[3], tile_peak=int(vals[6]), overflow_tile_live=live))
+        self._maybe_shrink_capacity(int(vals[6]),
+                                    live == 0 and all(o == 0 for o in overflow[1:]))
+        return metrics
+
+    def _frame_modules(self, df, frame: Frame, frame_idx: int) -> torch.Tensor:
+        """One frame through the per-module front-end
+        (`sags_tpu/slam/pipeline.py:797-833`): track, register a sensor-frame
+        scan at the estimated pose and grow the map, then train on a new
+        keyframe or a stored one. Returns the device pose."""
+        cfg = self.cfg
+        pose = self._track(frame, df)
+        self._n_frames += 1
+        pts = df.points
+        if df.sensor_frame:
+            pts = pts @ pose[:3, :3].T + pose[:3, 3]
+        self._maybe_grow_map(self.point_budget)
+        self.state, _ = slam_step_mod.add_frame_points(self.state, pts, df.colors, df.mask,
+                                                       cfg, keyframe_id=frame_idx)
+        if frame_idx % cfg.keyframes.keyframe_freq == 0:
+            H, W = frame.image.shape[1:]
+            if self.mask_generator is not None:
+                objects = self._make_objects(frame, pose)
+            else:
+                if self._zeros_objects is None:
+                    self._zeros_objects = torch.zeros((H, W), dtype=torch.int32,
+                                                      device=self.device)
+                objects = self._zeros_objects
+            kf = Keyframe(camera=fused_mod._camera_at(pose, cfg, H, W), image=df.image,
+                          objects=objects, pose=pose)
+            self.keyframes.append(kf)
+            if len(self.keyframes) > cfg.keyframes.window:
+                self.keyframes.pop(0)
+            self._train_once(kf)
+        elif cfg.keyframes.replay and self.keyframes:
+            self._train_once(self.keyframes[self._kf_rng.integers(len(self.keyframes))])
+        return pose
+
     # -- fused front-end ------------------------------------------------
     def _fused_setup(self, df, frame: Frame) -> None:
         H, W = frame.image.shape[1:]
@@ -429,15 +669,18 @@ class SLAMPipeline:
     def run(self, frames: Iterable[Frame], post_train: Optional[int] = None) -> PipelineResult:
         """Consume a frame stream, then post-train on random keyframes."""
         cfg = self.cfg
+        use_fused = self._use_fused
         poses_est, poses_gt = [], []
-        scan_budget = cfg.tracking.max_points if cfg.tracking.backend != "none" else None
+        scan_budget = (cfg.tracking.max_points
+                       if use_fused and cfg.tracking.backend != "none" else None)
         q = FrameQueue(frames, self.point_budget, self.device, prefetch=2,
                        timeout_s=cfg.timeout_s, scan_budget=scan_budget)
+        frame_fn = self._frame_fused if use_fused else self._frame_modules
         frame_times: List[float] = []
         try:
             for frame_idx, (df, frame) in enumerate(q):
                 t_frame = time.perf_counter()
-                poses_est.append(self._frame_fused(df, frame, frame_idx))
+                poses_est.append(frame_fn(df, frame, frame_idx))
                 poses_gt.append(np.full((4, 4), np.nan, np.float32) if frame.pose is None
                                 else np.asarray(frame.pose))
                 frame_times.append(time.perf_counter() - t_frame)
@@ -447,9 +690,14 @@ class SLAMPipeline:
         for _ in range(n_post):
             if not self.keyframes:
                 break
-            self._train_once_fused(self.keyframes[self._kf_rng.integers(len(self.keyframes))])
-        self._drain_metrics()
-        self._met_snaps.clear()
+            kf = self.keyframes[self._kf_rng.integers(len(self.keyframes))]
+            if use_fused and self._fused is not None:
+                self._train_once_fused(kf)
+            else:
+                self._train_once(kf)
+        if use_fused:
+            self._drain_metrics()
+            self._met_snaps.clear()
         poses_np = (torch.stack(poses_est).cpu().numpy() if poses_est
                     else np.zeros((0, 4, 4)))
         return PipelineResult(

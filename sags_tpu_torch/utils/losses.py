@@ -8,6 +8,8 @@ import functools
 import numpy as np
 import torch
 
+from sags_tpu_torch import device_constant
+
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask_zeros: bool = True):
     """Returns (map, mean) like `loss_utils.py:17-20`; `gt == 0` is masked."""
@@ -33,11 +35,16 @@ def _band_matrix(size: int, window_size: int, sigma: float) -> np.ndarray:
     return B
 
 
+def _band(size: int, window_size: int, sigma: float, device) -> torch.Tensor:
+    return device_constant(("ssim_band", size, window_size, sigma),
+                           lambda: _band_matrix(size, window_size, sigma), device)
+
+
 def _depthwise_conv(img: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
     """img [C,H,W] -> separable Gaussian blur via two banded matmuls."""
     _, H, W = img.shape
-    Bh = torch.as_tensor(_band_matrix(H, window_size, sigma), device=img.device)
-    Bw = torch.as_tensor(_band_matrix(W, window_size, sigma), device=img.device)
+    Bh = _band(H, window_size, sigma, img.device)
+    Bw = _band(W, window_size, sigma, img.device)
     out = torch.einsum("ih,chw->ciw", Bh, img)
     return torch.einsum("jw,chw->chj", Bw, out)
 

@@ -606,6 +606,80 @@ def test_registration_on_the_card_matches_the_cpu(device, align):
     torch.testing.assert_close(g.T.cpu(), c.T, atol=1e-5, rtol=0)
 
 
+def _room(rng, n):
+    """Floor and two walls of a 5 m room (`tests/test_esikf.py`'s `make_room`)."""
+    n3 = n // 3
+    u = [rng.uniform(0, 5, (n3, 2)), rng.uniform(0, 5, (n3, 2)),
+         rng.uniform(0, 5, (n - 2 * n3, 2))]
+    z = lambda k: np.zeros(k)
+    return np.concatenate([np.stack([u[0][:, 0], u[0][:, 1], z(n3)], -1),
+                           np.stack([u[1][:, 0], z(n3), u[1][:, 1]], -1),
+                           np.stack([z(n - 2 * n3), u[2][:, 0], u[2][:, 1]], -1)]
+                          ).astype(np.float32)
+
+
+def test_surfel_fold_on_the_card_is_repeatable_and_matches_the_cpu(device):
+    """`esikf.surfel_map_update` of two scans (with intensities) twice on the
+    card: bitwise equal (each voxel's run summed in order, no atomics);
+    keys, counts and overflow equal to the CPU's, moments to 1e-5 relative."""
+    from sags_tpu_torch.ops import esikf
+
+    rng = np.random.default_rng(0)
+    scans = [_room(rng, 3000) + rng.normal(0, 0.01, (3000, 3)).astype(np.float32)
+             for _ in range(2)]
+    its = [rng.uniform(0, 1, 3000).astype(np.float32) for _ in range(2)]
+    maps = {}
+    for dev in (torch.device("cpu"), device, device):
+        sm = esikf.surfel_map_init(resolution=0.3, capacity=2048, device=dev)
+        for pts, it in zip(scans, its):
+            sm = esikf.surfel_map_update(sm, torch.as_tensor(pts, device=dev),
+                                         torch.ones(len(pts), dtype=torch.bool, device=dev),
+                                         intensity=torch.as_tensor(it, device=dev))
+        maps.setdefault(dev.type, []).append(sm)
+    (a, b), c = maps["cuda"], maps["cpu"][0]
+    fields = ("keys", "n", "sum_p", "sum_pp", "sum_i", "overflow")
+    assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+    for f in ("keys", "n", "overflow"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(c, f)), f
+    for f in ("sum_p", "sum_pp", "sum_i"):
+        want = getattr(c, f)
+        torch.testing.assert_close(getattr(a, f).cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_scan_update_on_the_card_matches_the_cpu(device):
+    """One `esikf.scan_update` (10 iterations) against a surfel map of a
+    room, from a perturbed prior, on the card and on the CPU: the state to
+    1e-5 (P to 1e-5 relative), `n_matched` equal."""
+    from sags_tpu_torch.core.transforms import so3_exp
+    from sags_tpu_torch.ops import esikf
+
+    rng = np.random.default_rng(1)
+    world = _room(rng, 4000)
+    R = so3_exp(torch.tensor([0.01, -0.02, 0.03])).numpy()
+    t = np.array([0.05, 0.08, -0.06], np.float32)
+    scan = ((_room(rng, 2000) - t) @ R).astype(np.float32)
+    res = {}
+    for dev in (torch.device("cpu"), device):
+        sm = esikf.surfel_map_init(resolution=0.3, capacity=4096, device=dev)
+        sm = esikf.surfel_map_update(sm, torch.as_tensor(world, device=dev),
+                                     torch.ones(len(world), dtype=torch.bool, device=dev))
+        st = esikf.init_state(device=dev)
+        P = st.P.clone()
+        P[:6, :6] = torch.eye(6, device=dev) * 0.05
+        res[dev.type] = esikf.scan_update(
+            st._replace(P=P), torch.as_tensor(scan, device=dev),
+            torch.ones(len(scan), dtype=torch.bool, device=dev), esikf.surfel_map_voxels(sm),
+            num_iters=10, min_planarity=0.1)
+    g, c = res["cuda"], res["cpu"]
+    assert int(g.n_matched) == int(c.n_matched) > 500
+    for f in ("R", "p", "v", "bg", "ba", "g"):
+        torch.testing.assert_close(getattr(g.state, f).cpu(), getattr(c.state, f),
+                                   atol=1e-5, rtol=0)
+    torch.testing.assert_close(g.state.P.cpu(), c.state.P, rtol=0,
+                               atol=1e-5 * float(c.state.P.abs().max()))
+
+
 def test_header_edit_changes_the_library_hash(monkeypatch, tmp_path):
     """A library is named by its source and every `csrc/` header it
     includes: editing a header that only an included header includes still
