@@ -115,10 +115,27 @@ Phases, each failing the run (non-zero exit, no result line):
      whose align starts from the last delta); the surfel map's size, overflow, matches and photometric
      residuals used; one surfel fold bitwise equal over two runs; the three
      training kernels held at (a)'s newest keyframe at the classic loop's
-     bars.
+     bars;
+ 10. the offline trainer: (a) `train_offline` over the loop's 48 frames
+     (196,608 init points, capacity 2^20, `SLAMConfig()` at its defaults)
+     for 600 iterations: `init_from_points` seconds (kNN scales included),
+     iterations/s, peak memory, active Gaussians and drops after each
+     densify event (300, 400, 500, 600; the opacity reset at 600), finite
+     losses whose last 100 average below the first 100, the PSNR of three
+     training views, `fill_table`, `composite_fused` and
+     `composite_fused_bwd` launched exactly once an iteration (no other
+     kernel) and held at the trained map on one view at the classic bars
+     (the needle rule if the map holds a pair at the alpha gate); (b) 12
+     of those frames written as a COLMAP text model (the dataset's PINHOLE
+     intrinsics, `.npy` images, a seeded 32,768-point subsample of the
+     world as points3D), `load_colmap_scene`, then `train_offline_scene`
+     for 100 iterations: its radius, finite and falling losses, one launch
+     of each kernel an iteration; (c) `save_map_ply` / `load_map_ply` of
+     (a)'s compacted map, every field read back bitwise.
 Launch counts are zeroed just before each main path (each loop, each eval
-mode) and read just after. The line before the last holds each kernel's
-launches on its path, its time, its plain version's time, the library
+mode, each offline run) and read just after. The line before the last
+holds each kernel's launches on its path (rows 1-3 also in the offline
+run, `offline_launches`), its time, its plain version's time, the library
 call's time and its bound. A kernel's `ms` and `library_ms` are device time
 from a CUDA graph of its launches (`graph_ms`); `stream_ms` and `plain_ms`
 time back-to-back launches from Python (`cuda_ms`), which for a kernel of a
@@ -630,7 +647,8 @@ def windowed_cell(device, P=2 ** 18, width=SLICE_W, height=SLICE_H, K=1024):
 
 class swapped:
     """`module.name` set to `kernel` inside the block: a wrapper launches a
-    variant of its kernel (built with other flags) for a measurement."""
+    variant of its kernel (built with other flags) for a measurement, or a
+    function the offline trainer calls is observed."""
 
     def __init__(self, module, name, kernel):
         self.module, self.name, self.kernel = module, name, kernel
@@ -997,7 +1015,7 @@ def slam_phase(device, n_warm=32, n_timed=16, **sizes):
         state, _ = slam_step.slam_step(state, kf.camera, kf.image, kf.objects, pipe.cfg)
 
     step_ms = cuda_ms(one_step, 10)
-    fwd, bwd = loop_fused_check(device, pipe, kf.camera)
+    fwd, bwd = loop_fused_check(device, pipe.state.map, pipe.cfg, kf.camera)
 
     poses = np.concatenate([warm.poses_est, timed.poses_est])
     gt = np.concatenate([warm.poses_gt, timed.poses_gt])
@@ -1061,10 +1079,11 @@ def near_gate_pairs(G, table, counts, tile, pixel, tiles_x, alpha_min, rel=1e-5)
     return int(((alpha / alpha_min - 1.0).abs() < rel).sum())
 
 
-def loop_fused_check(device, pipe, camera):
+def loop_fused_check(device, m, cfg, camera):
     """`composite_fused` and `composite_fused_bwd` against their plain
-    versions at the shapes the classic loop trains with (its final tile
-    capacity, R and chunk) on the inputs `rasterize` prepares for `camera`:
+    versions at the shapes a classic training loop uses (`cfg.raster`'s tile
+    capacity, R and chunk) on the inputs `rasterize` prepares from map `m`
+    for `camera`:
     `fill_table` exactly; the forward's acc and T to 1e-3 absolute (the
     share of pixels off, the tiles not gate-stable and the near-gate pairs
     at the worst pixel reported), its strip cull dropping no gated pair;
@@ -1078,12 +1097,12 @@ def loop_fused_check(device, pipe, camera):
     from sags_tpu_torch.ops import binning, composite
     from sags_tpu_torch.ops import rasterize as rz
 
-    m, rc = pipe.state.map, pipe.cfg.raster
+    rc = cfg.raster
     tiles_x, tiles_y = -(-camera.width // rc.tile), -(-camera.height // rc.tile)
     kw = dict(alpha_min=rc.alpha_min, t_min=rc.transmittance_min, chunk=rc.chunk)
     with torch.no_grad():
         pre = rz.preprocess(m.xyz, gm.get_opacity(m), gm.get_scaling(m), gm.get_rotation(m),
-                            camera, rc, shs=gm.get_shs(m), sh_degree=pipe.cfg.map.sh_degree,
+                            camera, rc, shs=gm.get_shs(m), sh_degree=cfg.map.sh_degree,
                             active_mask=m.active)
         table, counts, *_ = rz.bin_gaussians(pre, tiles_x, tiles_y, rc)
         G = rz._pack_gaussians(pre, m.obj_dc).contiguous()
@@ -1628,7 +1647,7 @@ def semantic_phase(device, frames, classic, n_warm=16, n_timed=8, n_post=100):
     losses = np.array(timed.losses)  # every frame's; post-training appends more
 
     kf = pipe.keyframes[-1]
-    fwd, bwd = loop_fused_check(device, pipe, kf.camera)
+    fwd, bwd = loop_fused_check(device, pipe.state.map, pipe.cfg, kf.camera)
     same, same_cls3d = gradients_bitwise(device, pipe, kf)
     replay = associator_replay(rec, cfg)
 
@@ -1990,7 +2009,8 @@ def tracking_loop(device, frames, backend, n_warm, n_timed):
     torch.cuda.synchronize()
     frame_ms = start.elapsed_time(end) / n_timed
     launches = {k.symbol: k.launches for k in _build.kernels()}
-    fwd, bwd = loop_fused_check(device, pipe, pipe.keyframes[-1].camera)
+    fwd, bwd = loop_fused_check(device, pipe.state.map, pipe.cfg,
+                                pipe.keyframes[-1].camera)
 
     poses = np.concatenate([warm.poses_est, timed.poses_est])
     gt = np.concatenate([warm.poses_gt, timed.poses_gt])
@@ -2242,7 +2262,7 @@ def esikf_phase(device, frames, classic, n_warm=16, n_timed=8):
                       ("gicp_per_module", slam_config(tracking="gicp", fused_frontend=False))):
         pipes[name], loops[name] = esikf_loop(device, frames, cfg, n_warm, n_timed)
     a = pipes["esikf_li"]
-    fwd, bwd = loop_fused_check(device, a, a.keyframes[-1].camera)
+    fwd, bwd = loop_fused_check(device, a.state.map, a.cfg, a.keyframes[-1].camera)
     fold_bitwise = surfel_fold_bitwise(a, frames[-1])
     refs = {"esikf_li": REFERENCE_ESIKF_LI_ATE_M, "esikf_liv": REFERENCE_ESIKF_LIV_ATE_M,
             "gicp_per_module": REFERENCE_GICP_PER_MODULE_ATE_M}
@@ -2274,6 +2294,236 @@ def esikf_phase(device, frames, classic, n_warm=16, n_timed=8):
     assert fold_bitwise, "surfel_map_update not bitwise repeatable"
     assert_loop_fused(fwd, bwd, "the esikf loop")
     return {name: r["launches"] for name, r in loops.items()}
+
+
+OFFLINE_ITERS = 600  # densify at 300, 400, 500, 600; the opacity reset at 600
+OFFLINE_SCENE_VIEWS, OFFLINE_SCENE_POINTS, OFFLINE_SCENE_ITERS = 12, 32768, 100
+
+
+def offline_phase(device, frames, ds, iterations=OFFLINE_ITERS, cfg=None,
+                  scene_views=OFFLINE_SCENE_VIEWS, scene_points=OFFLINE_SCENE_POINTS,
+                  scene_iters=OFFLINE_SCENE_ITERS):
+    """The offline trainer; see the module docstring's phase 10. Returns the
+    launches of (a)'s run."""
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.core.config import SLAMConfig
+    from sags_tpu_torch.eval import metrics as eval_metrics
+    from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.ops import rasterize as rz
+    from sags_tpu_torch.slam import offline
+    from sags_tpu_torch.slam.pipeline import camera_for
+
+    cfg = cfg or SLAMConfig()
+    # (a) frame replay, observed from outside: init (kNN scales) timed; at
+    # each densify event the averaged view-space gradients it selects from,
+    # its clone and split candidates, and after it the slots appended, the
+    # drops (candidates not appended) and the active count; the opacities
+    # each reset replaces (device tensors, read after the run)
+    init_s, seen, reset_from = [], [], []
+    real_init, real_densify, real_reset = (offline.init_from_points,
+                                           offline.densify_event, gm.reset_opacity)
+
+    def timed_init(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_init(*args, **kw)
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t0)
+        return out
+
+    def seen_densify(state, cfg):
+        m = state.map
+        g = torch.where(m.active, m.xyz_grad_accum / torch.clamp(m.denom, min=1.0),
+                        torch.zeros_like(m.denom))
+        high = g >= cfg.opt.densify_grad_threshold
+        small = (torch.amax(gm.get_scaling(m), dim=-1)
+                 <= cfg.opt.percent_dense * cfg.scene_extent)
+        out = real_densify(state, cfg)
+        n_clone, n_split = (high & small).sum(), (high & ~small).sum()
+        appended = out.map.count - m.count
+        seen.append(torch.stack([g.max(), (m.denom > 0).sum(), n_clone, n_split, appended,
+                                 n_clone + 2 * n_split - appended, gm.n_active(out.map),
+                                 out.map.count]))
+        return out
+
+    def seen_reset(m, *args, **kw):
+        reset_from.append(m.opacity_logit.clone())
+        return real_reset(m, *args, **kw)
+
+    with swapped(offline, "init_from_points", timed_init), \
+            swapped(offline, "densify_event", seen_densify), \
+            swapped(gm, "reset_opacity", seen_reset):
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, losses = offline.train_offline(frames, cfg, iterations, seed=0, device=device)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in _build.kernels()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    keys = ("grad_max", "gaussians_seen", "clone_candidates", "split_candidates", "appended", "drops",
+            "n_active", "count")
+    densify = [dict(zip(keys, [float(r[0])] + [int(x) for x in r[1:].tolist()]))
+               for r in seen]
+    L = np.asarray(losses)
+    n_avg = min(100, len(L) // 2)
+    first_mean, last_mean = float(L[:n_avg].mean()), float(L[-n_avg:].mean())
+    m = state.map
+    views = [0, len(frames) // 2, len(frames) - 1]
+
+    def view_psnrs(m):
+        out = []
+        with torch.no_grad():
+            for i in views:
+                cam = camera_for(cfg, frames[i], frames[i].pose, device)
+                r = rz.rasterize(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
+                                 gm.get_rotation(m), cam, cfg.raster, shs=gm.get_shs(m),
+                                 sh_degree=cfg.map.sh_degree, active_mask=m.active,
+                                 fused=False)
+                out.append(eval_metrics.psnr(r.color, frames[i].image))
+        return dict(zip(map(str, views), out))
+
+    psnrs = view_psnrs(m)
+    # a reset on the last iteration leaves every opacity at ≤ 0.01: the map
+    # as trained is the one just before it
+    psnrs_trained = (view_psnrs(m._replace(opacity_logit=reset_from[-1]))
+                     if reset_from and iterations % cfg.opt.opacity_reset_interval == 0
+                     else psnrs)
+    cam = camera_for(cfg, frames[views[1]], frames[views[1]].pose, device)
+    fwd, bwd = loop_fused_check(device, m, cfg, cam)
+    n_init = int(sum(len(f.points) for f in frames))
+    res_a = {"frames": len(frames), "init_points": n_init, "capacity": m.capacity,
+             "iterations": iterations, "init_seconds": init_s[0], "run_seconds": run_s,
+             "iterations_per_s": iterations / (run_s - init_s[0]),
+             "peak_gb": peak_gb, "densify_threshold": cfg.opt.densify_grad_threshold,
+             "densify_events": densify, "opacity_resets": len(reset_from),
+             "n_active_final": int(gm.n_active(m)), "count_final": int(m.count),
+             "loss_first_100": first_mean, "loss_last_100": last_mean,
+             "loss_first": float(L[0]), "loss_last": float(L[-1]),
+             "psnr_training_views": psnrs_trained,
+             "psnr_training_views_after_last_reset": psnrs,
+             "launches": launches,
+             "composite_fused_at_offline_map": fwd, "composite_fused_bwd_at_offline_map": bwd}
+
+    # (b) a COLMAP text model of `scene_views` of those frames
+    res_b = colmap_scene_run(device, frames, ds, cfg, scene_views, scene_points,
+                             scene_iters)
+    # (c) the compacted map through PLY
+    res_c = ply_round_trip(device, m)
+    emit({"phase": "offline", "frame_replay": res_a, "colmap_scene": res_b, "ply": res_c})
+
+    assert np.isfinite(L).all() and len(L) == iterations, "offline losses"
+    assert last_mean < first_mean, (first_mean, last_mean)
+    want = [s for s in range(1, iterations + 1)
+            if cfg.opt.densify_from_iter <= s <= cfg.opt.densify_until_iter
+            and s % cfg.opt.densification_interval == 0]
+    assert len(densify) == len(want), (len(densify), want)
+    assert len(reset_from) == iterations // cfg.opt.opacity_reset_interval, len(reset_from)
+    for sym in SLAM_KERNELS:
+        assert launches[sym] == iterations, f"{sym}: {launches[sym]} launches, {iterations} steps"
+    for k in _build.kernels():
+        if k.symbol not in SLAM_KERNELS:
+            assert launches[k.symbol] == 0, f"{k.symbol} launched by the offline trainer"
+    # the classic bars; a map holding a pair at the alpha gate (a tile off
+    # 1e-3 with a near-gate pair at its worst pixel) takes the needle rule
+    gate = fwd["max_abs_err"] > 1e-3 and fwd["near_gate_pairs_at_worst_pixel"] >= 1
+    assert_loop_fused(fwd, bwd, "the offline map", gate_pixels=gate)
+    assert res_b["losses_finite"] and res_b["loss_last_20"] < res_b["loss_first_20"], res_b
+    assert res_b["train_views"] == scene_views and res_b["radius"] > 0, res_b
+    for sym in SLAM_KERNELS:
+        assert res_b["launches"][sym] == scene_iters, (sym, res_b["launches"])
+    assert res_c["bitwise"], res_c
+    return launches
+
+
+def colmap_scene_run(device, frames, ds, cfg, n_views, n_points, iterations) -> dict:
+    """Every (len(frames) // n_views)-th frame as a COLMAP text model (the
+    dataset's own PINHOLE intrinsics and world→camera poses, `.npy` images)
+    with a seeded `n_points` subsample of the world as points3D, in a
+    temporary directory; `load_colmap_scene`, then `train_offline_scene`."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from sags_tpu_torch.io.colmap import rotmat2qvec
+    from sags_tpu_torch.io.colmap_scene import load_colmap_scene
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.slam import offline
+
+    W, H = ds.width, ds.height
+    fx = W / (2.0 * math.tan(ds.fovx / 2.0))
+    fy = H / (2.0 * math.tan(ds.fovy / 2.0))
+    idx = list(range(0, len(frames), max(len(frames) // n_views, 1)))[:n_views]
+    pick = np.random.default_rng(0).choice(len(ds.world_xyz), n_points, replace=False)
+    with tempfile.TemporaryDirectory() as root:
+        sparse = os.path.join(root, "sparse", "0")
+        os.makedirs(sparse)
+        os.makedirs(os.path.join(root, "images"))
+        with open(os.path.join(sparse, "cameras.txt"), "w") as f:
+            f.write(f"1 PINHOLE {W} {H} {fx!r} {fy!r} {W / 2} {H / 2}\n")
+        with open(os.path.join(sparse, "images.txt"), "w") as f:
+            for k, i in enumerate(idx):
+                V = ds.camera(i).world_view.cpu().numpy().astype(np.float64)
+                q, t = rotmat2qvec(V[:3, :3]), V[:3, 3]
+                f.write(f"{k + 1} " + " ".join(repr(float(x)) for x in (*q, *t))
+                        + f" 1 view{i}.npy\n\n")
+                np.save(os.path.join(root, "images", f"view{i}.npy"),
+                        np.asarray(frames[i].image).transpose(1, 2, 0))
+        rgb = np.round(ds.world_rgb[pick] * 255).astype(int)
+        with open(os.path.join(sparse, "points3D.txt"), "w") as f:
+            for j, (p, c) in enumerate(zip(ds.world_xyz[pick], rgb)):
+                f.write(f"{j + 1} " + " ".join(repr(float(x)) for x in p)
+                        + f" {c[0]} {c[1]} {c[2]} 0.5\n")
+        t0 = time.perf_counter()
+        scene = load_colmap_scene(root, device=device)
+        load_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses = offline.train_offline_scene(scene, cfg, iterations, seed=0, device=device)
+    run_s = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in _build.kernels()}
+    L = np.asarray(losses)
+    n_avg = min(20, len(L) // 2)
+    return {"train_views": len(scene.train_views), "points": len(scene.points),
+            "radius": float(scene.radius), "load_seconds": load_s, "iterations": iterations,
+            "run_seconds": run_s, "capacity": state.map.capacity,
+            "losses_finite": bool(np.isfinite(L).all()),
+            "loss_first_20": float(L[:n_avg].mean()), "loss_last_20": float(L[-n_avg:].mean()),
+            "launches": launches}
+
+
+def ply_round_trip(device, m) -> dict:
+    """`save_map_ply` of the compacted map, `load_map_ply` back onto the
+    card: every field of the active rows bitwise."""
+    import os
+    import tempfile
+
+    import torch
+
+    from sags_tpu_torch.io import ply
+    from sags_tpu_torch.mapping import gaussian_map as gm
+
+    c = gm.compact(m)
+    n = int(c.count)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "map.ply")
+        t0 = time.perf_counter()
+        ply.save_map_ply(path, c)
+        save_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 2 ** 20
+        t0 = time.perf_counter()
+        back = ply.load_map_ply(path, device=device)
+        load_s = time.perf_counter() - t0
+    same = {f: torch.equal(getattr(back, f)[:n], getattr(c, f)[:n]) for f in gm.PARAM_FIELDS}
+    return {"gaussians": n, "file_mb": size_mb, "save_seconds": save_s,
+            "load_seconds": load_s, "fields_bitwise": same,
+            "bitwise": all(same.values()) and int(back.count) == n
+            and int(back.active.sum()) == n}
 
 
 def main() -> int:
@@ -2317,6 +2567,7 @@ def main() -> int:
     sam_phase(device, kf_images, frames, pipe.cfg.semantics.num_classes)
     tracking_phase(device, frames, dict(classic, poses=poses, lm_log=pipe.lm_log))
     module_launches = esikf_phase(device, frames, dict(classic, poses=poses))
+    offline_launches = offline_phase(device, frames, classic["dataset"])
 
     # (source, TPU kernel, C symbol, the path whose launches count, frames on it)
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -2369,7 +2620,8 @@ def main() -> int:
             **({"empty_kernel_ms": r["empty_ms"],
                 "torch_full_ms": r["full_ms"], "semantic_loop_launches": sem["launches"][sym]}
                if name == "fill_table" else {}),
-            **({"per_module_loops_launches": {k: v[sym] for k, v in module_launches.items()}}
+            **({"per_module_loops_launches": {k: v[sym] for k, v in module_launches.items()},
+                "offline_launches": offline_launches[sym]}
                if sym in SLAM_KERNELS else {}),
         })
     emit({"tile_capacity": K_final,

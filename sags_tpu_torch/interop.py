@@ -18,6 +18,10 @@ is its inverse, the tree that `models.sam_train.save_fp16` pickles.
 `esikf_state_from_numpy` and `surfel_map_from_numpy` build the ESIKF
 filter state and its surfel map (`ops.esikf`) from `{field: array}`.
 
+`offline_state_from_numpy` / `offline_state_to_numpy` carry the offline
+trainer's state (`slam.offline.OfflineState`) as `{"map", "opt", "step"}`,
+the first three entries of the SLAM tree.
+
 This module imports no JAX: the export from JAX arrays is the caller's.
 """
 
@@ -30,6 +34,7 @@ from sags_tpu_torch.mapping import gaussian_map as gm
 from sags_tpu_torch.models.classifier import ClassifierParams
 from sags_tpu_torch.models.sam import SAMParams
 from sags_tpu_torch.ops.esikf import ESIKFState, SurfelMap
+from sags_tpu_torch.slam.offline import OfflineState
 from sags_tpu_torch.slam.step import SLAMState
 from sags_tpu_torch.utils.adam import AdamState
 from sags_tpu_torch.utils.draws import TorchDraws
@@ -61,9 +66,8 @@ def _adam_to(state: AdamState, names) -> dict:
 def state_from_numpy(tree: dict, device, draws=None, seed: int = 0) -> SLAMState:
     """Build the port's `SLAMState` on `device` from the numpy tree."""
     device = torch.device(device)
-    m = gm.GaussianMap(**{f: _t(tree["map"][f], device) for f in gm.GaussianMap._fields})
     return SLAMState(
-        map=m,
+        map=_map_from(tree["map"], device),
         opt_state=_adam_from(tree["opt"], gm.PARAM_FIELDS, device),
         classifier=ClassifierParams(*(_t(tree["classifier"][n], device)
                                       for n in _CLS_FIELDS)),
@@ -76,14 +80,39 @@ def state_from_numpy(tree: dict, device, draws=None, seed: int = 0) -> SLAMState
 def state_to_numpy(state: SLAMState) -> dict:
     """The inverse of `state_from_numpy` (the draw hook is not exported)."""
     return {
-        "map": {f: getattr(state.map, f).detach().cpu().numpy()
-                for f in gm.GaussianMap._fields},
+        "map": _map_to(state.map),
         "opt": _adam_to(state.opt_state, gm.PARAM_FIELDS),
         "classifier": {n: x.detach().cpu().numpy()
                        for n, x in zip(_CLS_FIELDS, state.classifier)},
         "cls_opt": _adam_to(state.cls_opt_state, _CLS_FIELDS),
         "step": int(state.step),
     }
+
+
+def _map_from(tree: dict, device) -> gm.GaussianMap:
+    return gm.GaussianMap(**{f: _t(tree[f], device) for f in gm.GaussianMap._fields})
+
+
+def _map_to(m: gm.GaussianMap) -> dict:
+    return {f: getattr(m, f).detach().cpu().numpy() for f in gm.GaussianMap._fields}
+
+
+def offline_state_from_numpy(tree: dict, device, draws=None,
+                             seed: int = 0) -> OfflineState:
+    """The offline trainer's state on `device` from `{"map", "opt", "step"}`;
+    `draws` defaults to a generator seeded with `seed`."""
+    device = torch.device(device)
+    return OfflineState(map=_map_from(tree["map"], device),
+                        opt_state=_adam_from(tree["opt"], gm.PARAM_FIELDS, device),
+                        step=int(tree["step"]),
+                        draws=TorchDraws(seed, device) if draws is None else draws)
+
+
+def offline_state_to_numpy(state: OfflineState) -> dict:
+    """The inverse of `offline_state_from_numpy` (the draw hook is not
+    exported)."""
+    return {"map": _map_to(state.map), "opt": _adam_to(state.opt_state, gm.PARAM_FIELDS),
+            "step": int(state.step)}
 
 
 def esikf_state_from_numpy(tree: dict, device) -> ESIKFState:

@@ -203,3 +203,17 @@ class SyntheticDataset:
                 imu=imu,
                 scan=rel[sel].astype(np.float32),
             )
+
+
+def resolution_policy(width: int, height: int, resolution: int = -1,
+                      cap: int = 1600):
+    """Training resolution (`utils/camera_utils.py:19-60`): -1 caps the long
+    side at `cap` px, 0 and 1 keep it, other positive values divide."""
+    if resolution in (1, 0):
+        return width, height
+    if resolution == -1:
+        if width > cap:
+            scale = width / cap
+            return int(width / scale), int(height / scale)
+        return width, height
+    return int(width / resolution), int(height / resolution)

@@ -1,9 +1,10 @@
 """Incremental Gaussian map in fixed-capacity buffers with an active mask —
 `sags_tpu.mapping.gaussian_map` in torch.
 
-`count` is the allocation high-water mark; adds append at `[count, count+B)`,
-prunes clear `active` bits, `compact` gathers active slots to the front and
-`grow` pads every buffer — both carrying the per-group Adam moments.
+`count` is the allocation high-water mark; adds (new points, and the clones
+and splits of densification) append at `[count, count+B)`, prunes clear
+`active` bits, `compact` gathers active slots to the front and `grow` pads
+every buffer — both carrying the per-group Adam moments.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from sags_tpu_torch.core import sh as shlib
 from sags_tpu_torch.core.config import MapConfig, OptimizationConfig, expon_lr
-from sags_tpu_torch.core.transforms import quat_normalize
+from sags_tpu_torch.core.transforms import quat_normalize, quat_to_rotmat
 from sags_tpu_torch.utils.adam import AdamState, adam_init, adam_update
 
 
@@ -103,6 +104,34 @@ def get_shs(m: GaussianMap) -> torch.Tensor:
     return torch.cat([dc, m.f_rest.transpose(1, 2)], dim=-1)
 
 
+def _masked_append(count: torch.Tensor, mask: torch.Tensor, N: int):
+    """Plan a masked append of a [B]-row batch at `count + rank`, below
+    capacity N, without a host read. Returns (put, kept [B] bool, n_added,
+    n_dropped); `put(buf, val)` writes the kept rows of `val` into `buf` in
+    place. The j-th kept row (in batch order) goes to slot count + j (at
+    most N rows can be kept). Every j names a distinct slot, (count + j) mod
+    N; a j past the kept rows rewrites its slot with the slot's own value (a
+    wrapped one lies below count, never on a kept row). `val` is gathered
+    before the write, so it may be `buf`."""
+    B = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.int32), 0) - 1
+    ok = mask & (count + rank < N)
+    n_added = torch.sum(ok.to(torch.int32))
+    J = min(B, N)
+    src = torch.argsort((~ok).to(torch.int32), stable=True)[:J]
+    j = torch.arange(J, device=mask.device)
+    live = j < n_added
+    dst = (count + j) % N
+
+    def put(buf, val):
+        v = val[src] if val.dim() and val.shape[0] == B else val
+        keep = live.reshape((J,) + (1,) * (buf.dim() - 1))
+        buf[dst] = torch.where(keep, v, buf[dst])
+        return buf
+
+    return put, ok, n_added, torch.sum(mask.to(torch.int32)) - n_added
+
+
 def add_points(m: GaussianMap, points, colors, mask, draws, quats=None,
                scales=None, z_vals=None, trackable=None,
                initial_scale: float = 0.01, initial_opacity: float = 0.1,
@@ -129,27 +158,7 @@ def add_points(m: GaussianMap, points, colors, mask, draws, quats=None,
     if trackable is None:
         trackable = torch.zeros(B, dtype=torch.bool, device=dev)
 
-    rank = torch.cumsum(mask.to(torch.int32), 0) - 1
-    slot = m.count + rank
-    ok = mask & (slot < N)
-    n_added = torch.sum(ok.to(torch.int32))
-    n_dropped = torch.sum(mask.to(torch.int32)) - n_added
-    # No host read: the j-th kept row (in batch order) goes to slot count + j
-    # (at most N rows can be kept). Every j names a distinct slot,
-    # (count + j) mod N; a j past the kept rows rewrites its slot with the
-    # slot's own value (a wrapped one lies below count, never on a kept row).
-    J = min(B, N)
-    src = torch.argsort((~ok).to(torch.int32), stable=True)[:J]
-    j = torch.arange(J, device=dev)
-    live = j < n_added
-    dst = (m.count + j) % N
-
-    def put(buf, val):
-        v = val[src] if val.dim() and val.shape[0] == B else val
-        keep = live.reshape((J,) + (1,) * (buf.dim() - 1))
-        buf[dst] = torch.where(keep, v, buf[dst])
-        return buf
-
+    put, ok, n_added, n_dropped = _masked_append(m.count, mask, N)
     R = m.f_rest.shape[1]
     m = m._replace(
         xyz=put(m.xyz, points),
@@ -178,6 +187,115 @@ def prune_large_and_transparent(m: GaussianMap, min_opacity: float,
     if extent is not None:
         prune = prune | (torch.amax(get_scaling(m), dim=-1) > 0.1 * extent)
     return m._replace(active=m.active & ~prune)
+
+
+def prune_large_and_transparent2(m: GaussianMap, min_opacity: float,
+                                 scaling_threshold: float,
+                                 visibility: torch.Tensor) -> GaussianMap:
+    """`prune_large_and_transparent2` (`gaussian_model.py:639-651`): shrink
+    large Gaussians to 0.1× instead of deleting them; erase transparent
+    visible ones."""
+    scal = get_scaling(m)
+    large = torch.amax(scal, dim=-1) > scaling_threshold
+    new_ls = torch.where(large[:, None], torch.log(torch.clamp(scal * 0.1, min=1e-12)),
+                         m.log_scales)
+    transparent = visibility & (get_opacity(m) < min_opacity)
+    return m._replace(log_scales=new_ls, active=m.active & ~transparent)
+
+
+def add_densification_stats(m: GaussianMap, mean2d_grad: torch.Tensor,
+                            radii: torch.Tensor) -> GaussianMap:
+    """Accumulate ‖∇mean2D‖ of the visible Gaussians and their largest
+    screen radius (`gaussian_model.py:659-661`). `mean2d_grad` [N,2]."""
+    vis = radii > 0
+    norm = torch.linalg.vector_norm(mean2d_grad, dim=-1)
+    zero = torch.zeros_like(norm)
+    return m._replace(
+        xyz_grad_accum=m.xyz_grad_accum + torch.where(vis, norm, zero),
+        denom=m.denom + vis.to(torch.float32),
+        max_radii2d=torch.maximum(m.max_radii2d, torch.where(vis, radii.to(torch.float32),
+                                                             zero)))
+
+
+def densify_and_clone_split(m: GaussianMap, grad_threshold: float, scene_extent: float,
+                            draws, percent_dense: float = 0.01,
+                            n_split: int = 2) -> Tuple[GaussianMap, torch.Tensor]:
+    """Classic 3DGS densification (`gaussian_model.py:536-623`): high-gradient
+    Gaussians no larger than `percent_dense·scene_extent` are cloned; larger
+    ones are split into `n_split` copies offset by R·(z ⊙ s), z ~ N(0, I)
+    from `draws` (one [N,3] draw a copy), with scales divided by
+    0.8·n_split, and the originals deactivated. Appends are masked at
+    `count + rank`, what does not fit is dropped and counted; the gradient
+    stats are zeroed. Returns (map, drops), updating the buffers in place
+    with no host read."""
+    grads = m.xyz_grad_accum / torch.clamp(m.denom, min=1.0)
+    high = (grads >= grad_threshold) & m.active
+    scal = get_scaling(m)
+    small = torch.amax(scal, dim=-1) <= percent_dense * scene_extent
+    clone_m = high & small
+    split_m = high & ~small
+    N = m.capacity
+
+    def append_masked(m, sel, xyz, log_scales):
+        put, ok, n_added, dropped = _masked_append(m.count, sel, N)
+        zero = torch.zeros(N, device=m.xyz.device)
+        m = m._replace(
+            xyz=put(m.xyz, xyz), f_dc=put(m.f_dc, m.f_dc), f_rest=put(m.f_rest, m.f_rest),
+            log_scales=put(m.log_scales, log_scales), quats=put(m.quats, m.quats),
+            opacity_logit=put(m.opacity_logit, m.opacity_logit),
+            obj_dc=put(m.obj_dc, m.obj_dc), active=put(m.active, ok),
+            trackable=put(m.trackable, m.trackable & ok),
+            keyframe_id=put(m.keyframe_id, m.keyframe_id), count=m.count + n_added,
+            max_radii2d=put(m.max_radii2d, zero), xyz_grad_accum=put(m.xyz_grad_accum, zero),
+            denom=put(m.denom, zero))
+        return m, dropped
+
+    m, drops = append_masked(m, clone_m, m.xyz, m.log_scales)
+    R = quat_to_rot_cached(m.quats)
+    new_ls = torch.log(torch.clamp(scal / (0.8 * n_split), min=1e-12))
+    for _ in range(n_split):
+        noise = draws.normal((N, 3)) * scal
+        new_xyz = m.xyz + torch.einsum("nij,nj->ni", R, noise)
+        m, d = append_masked(m, split_m, new_xyz, new_ls)
+        drops = drops + d
+    m = m._replace(active=m.active & ~split_m,
+                   xyz_grad_accum=torch.zeros_like(m.xyz_grad_accum),
+                   denom=torch.zeros_like(m.denom))
+    return m, drops
+
+
+def quat_to_rot_cached(quats: torch.Tensor) -> torch.Tensor:
+    return quat_to_rotmat(quat_normalize(quats))
+
+
+def _opacity_logit(op: torch.Tensor) -> torch.Tensor:
+    return inverse_sigmoid(torch.clamp(op, 1e-6, 1 - 1e-6))
+
+
+def reset_opacity(m: GaussianMap, ceiling: float = 0.01) -> GaussianMap:
+    """`reset_opacity` (`gaussian_model.py:312-315`): opacity ≤ ceiling."""
+    return m._replace(opacity_logit=_opacity_logit(
+        torch.clamp(get_opacity(m), max=ceiling)))
+
+
+def reset_unreliable_opacity(m: GaussianMap, flt: torch.Tensor,
+                             ceiling: float = 0.01) -> GaussianMap:
+    """`reset_unreliable_opacity` (`gaussian_model.py:317-322`): the ceiling
+    on the `flt` subset only."""
+    op = get_opacity(m)
+    return m._replace(opacity_logit=_opacity_logit(
+        torch.where(flt, torch.clamp(op, max=ceiling), op)))
+
+
+def reset_visible_opacity(m: GaussianMap, visibility: torch.Tensor,
+                          large_scale: float = 0.03) -> GaussianMap:
+    """`reset_visible_opacity` (`gaussian_model.py:324-360`): opacity of the
+    large visible Gaussians decays to min(x, log(1+x))."""
+    op = get_opacity(m)
+    large = torch.amax(get_scaling(m), dim=-1) > large_scale
+    mask = visibility & large & m.active
+    return m._replace(opacity_logit=_opacity_logit(
+        torch.where(mask, torch.minimum(op, torch.log1p(op)), op)))
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +394,13 @@ def grow(m: GaussianMap, new_capacity: int, opt_state: Optional[AdamState] = Non
 
 def n_active(m: GaussianMap) -> torch.Tensor:
     return torch.sum(m.active.to(torch.int32))
+
+
+def gaussians_from_keyframes(m: GaussianMap, min_keyframe_id):
+    """(xyz, rotation, scaling, mask) of the active Gaussians spawned at or
+    after keyframe `min_keyframe_id` (`get_target_gaussians`)."""
+    sel = m.active & (m.keyframe_id >= min_keyframe_id)
+    return m.xyz, get_rotation(m), get_scaling(m), sel
 
 
 def get_trackable_gaussians(m: GaussianMap, opacity_th: float):

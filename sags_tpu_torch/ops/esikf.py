@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from sags_tpu_torch import device_constant
+from sags_tpu_torch import device_constant, resolve_device
 from sags_tpu_torch.core.transforms import skew, so3_exp, so3_log
 from sags_tpu_torch.ops.gicp import (VoxelMap, _voxel_coords, lookup_voxels,
                                      neighbor_offsets, sym_eig3)
@@ -44,8 +44,8 @@ class ESIKFState(NamedTuple):
 
 
 def init_state(R=None, p=None, g=None, P0_rot=1e-4, P0_pos=1e-4, P0_vel=1e-2,
-               P0_bias=1e-4, P0_grav=1e-6, device="cpu") -> ESIKFState:
-    dev = torch.device(device)
+               P0_bias=1e-4, P0_grav=1e-6, device=None) -> ESIKFState:
+    dev = resolve_device(device)
     f = lambda x: torch.full((3,), x, dtype=torch.float32, device=dev)
     P = torch.diag(torch.cat([f(P0_rot), f(P0_pos), f(P0_vel), f(P0_bias), f(P0_bias),
                               f(P0_grav)]))
@@ -287,7 +287,7 @@ class SurfelMap(NamedTuple):
 
 
 def surfel_map_init(resolution: float = 0.3, capacity: int = 8192,
-                    world_extent: float = 128.0, device="cpu") -> SurfelMap:
+                    world_extent: float = 128.0, device=None) -> SurfelMap:
     """A fixed grid centred at the origin (±world_extent/2 a side). Raises
     when the flattened key space exceeds int32, where keys would wrap."""
     half = int(world_extent / (2 * resolution)) + 2
@@ -296,7 +296,7 @@ def surfel_map_init(resolution: float = 0.3, capacity: int = 8192,
         max_dim = int((2.0 ** 31) ** (1.0 / 3.0))
         raise ValueError(f"surfel grid {dim}^3 overflows the int32 key space "
                          f"(max ~{max_dim} cells per axis)")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return SurfelMap(
         keys=torch.full((capacity,), _SURFEL_KEY_MAX, dtype=torch.int32, device=dev),
         n=torch.zeros(capacity, device=dev),

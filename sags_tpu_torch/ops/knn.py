@@ -27,3 +27,17 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int, chunk: int = 1024,
     if exclude_self:
         d2, idx = d2[:, 1:], idx[:, 1:]
     return d2, idx
+
+
+def mean_knn3_sqdist(points: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """`distCUDA2`: the mean squared distance of each point to its 3 nearest
+    other points (`simple_knn.cu:147-183`, self excluded), exact."""
+    d2, _ = knn(points, points, k=3, chunk=chunk, exclude_self=True)
+    return torch.mean(d2, dim=-1)
+
+
+def scale_init_from_points(points: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """Classic 3DGS scale init, [N,3]: log(sqrt(clamp(mean 3-NN d², 1e-7)))
+    on every axis."""
+    dist2 = torch.clamp(mean_knn3_sqdist(points, chunk), min=1e-7)
+    return torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)

@@ -109,8 +109,12 @@ class RenderOutput:
 
 def preprocess(means3d, opacities, scales, quats, camera: Camera,
                cfg: RasterizeConfig, colors=None, shs=None, sh_degree: int = 0,
-               active_mask=None) -> Preprocessed:
-    """Per-Gaussian projection (`sags_tpu.ops.rasterize.preprocess`)."""
+               cov3d_precomp=None, active_mask=None, mean2d_offset=None) -> Preprocessed:
+    """Per-Gaussian projection (`sags_tpu.ops.rasterize.preprocess`).
+    `cov3d_precomp` ([P,3,3], or [P,6] packed upper-triangular) replaces Σ3D
+    from (scale, quat). `mean2d_offset` [P,2] (zeros) is the densification
+    probe: d(loss)/d(offset) is the view-space positional gradient (the
+    reference's `viewspace_points.retain_grad()`)."""
     P = means3d.shape[0]
     W, H = camera.width, camera.height
     tiles_x = -(-W // cfg.tile)
@@ -130,28 +134,39 @@ def preprocess(means3d, opacities, scales, quats, camera: Camera,
     inv_w = 1.0 / (hw + 1e-7)
     mean_x = ndc2pix(hx * inv_w, W)
     mean_y = ndc2pix(hy * inv_w, H)
+    if mean2d_offset is not None:
+        mean_x = mean_x + mean2d_offset[:, 0]
+        mean_y = mean_y + mean2d_offset[:, 1]
 
-    q = quat_normalize(quats)
-    qx, qy, qz, qw = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
-    r00 = 1 - 2 * (qy * qy + qz * qz)
-    r01 = 2 * (qx * qy - qw * qz)
-    r02 = 2 * (qx * qz + qw * qy)
-    r10 = 2 * (qx * qy + qw * qz)
-    r11 = 1 - 2 * (qx * qx + qz * qz)
-    r12 = 2 * (qy * qz - qw * qx)
-    r20 = 2 * (qx * qz - qw * qy)
-    r21 = 2 * (qy * qz + qw * qx)
-    r22 = 1 - 2 * (qx * qx + qy * qy)
-    m = cfg.scale_modifier
-    v0 = (scales[:, 0] * m) ** 2
-    v1 = (scales[:, 1] * m) ** 2
-    v2 = (scales[:, 2] * m) ** 2
-    s00 = r00 * r00 * v0 + r01 * r01 * v1 + r02 * r02 * v2
-    s01 = r00 * r10 * v0 + r01 * r11 * v1 + r02 * r12 * v2
-    s02 = r00 * r20 * v0 + r01 * r21 * v1 + r02 * r22 * v2
-    s11 = r10 * r10 * v0 + r11 * r11 * v1 + r12 * r12 * v2
-    s12 = r10 * r20 * v0 + r11 * r21 * v1 + r12 * r22 * v2
-    s22 = r20 * r20 * v0 + r21 * r21 * v1 + r22 * r22 * v2
+    if cov3d_precomp is not None:
+        c = cov3d_precomp
+        if c.dim() == 3:
+            s00, s01, s02 = c[:, 0, 0], c[:, 0, 1], c[:, 0, 2]
+            s11, s12, s22 = c[:, 1, 1], c[:, 1, 2], c[:, 2, 2]
+        else:  # packed [P,6] upper-triangular, the CUDA layout
+            s00, s01, s02, s11, s12, s22 = (c[:, i] for i in range(6))
+    else:
+        q = quat_normalize(quats)
+        qx, qy, qz, qw = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+        r00 = 1 - 2 * (qy * qy + qz * qz)
+        r01 = 2 * (qx * qy - qw * qz)
+        r02 = 2 * (qx * qz + qw * qy)
+        r10 = 2 * (qx * qy + qw * qz)
+        r11 = 1 - 2 * (qx * qx + qz * qz)
+        r12 = 2 * (qy * qz - qw * qx)
+        r20 = 2 * (qx * qz - qw * qy)
+        r21 = 2 * (qy * qz + qw * qx)
+        r22 = 1 - 2 * (qx * qx + qy * qy)
+        m = cfg.scale_modifier
+        v0 = (scales[:, 0] * m) ** 2
+        v1 = (scales[:, 1] * m) ** 2
+        v2 = (scales[:, 2] * m) ** 2
+        s00 = r00 * r00 * v0 + r01 * r01 * v1 + r02 * r02 * v2
+        s01 = r00 * r10 * v0 + r01 * r11 * v1 + r02 * r12 * v2
+        s02 = r00 * r20 * v0 + r01 * r21 * v1 + r02 * r22 * v2
+        s11 = r10 * r10 * v0 + r11 * r11 * v1 + r12 * r12 * v2
+        s12 = r10 * r20 * v0 + r11 * r21 * v1 + r12 * r22 * v2
+        s22 = r20 * r20 * v0 + r21 * r21 * v1 + r22 * r22 * v2
 
     S = ((s00, s01, s02), (s01, s11, s12), (s02, s12, s22))
     Rv = [[V[i, k] for k in range(3)] for i in range(3)]
@@ -928,14 +943,24 @@ def _untile(x, tiles_x: int, tiles_y: int, tile: int, W: int, H: int):
 def rasterize(means3d, opacities, scales, quats, camera: Camera,
               cfg: RasterizeConfig = RasterizeConfig(), *, colors=None, shs=None,
               sh_degree: int = 0, obj_features=None, bg_color=None,
-              active_mask=None, windowed: Optional[bool] = None) -> RenderOutput:
+              cov3d_precomp=None, active_mask=None, mean2d_offset=None,
+              fused: Optional[bool] = None,
+              windowed: Optional[bool] = None) -> RenderOutput:
     """Render Gaussians (`sags_tpu.ops.rasterize`). `windowed=None` follows
     `cfg.windowed`; the windowed path runs when the shapes allow it (tile
     capacity a multiple of 128, a square R×R window, 16 object channels),
     else the classic one. Both are differentiable w.r.t. means3d, opacities,
-    scales, quats, colors/shs and obj_features, except the windowed path with
-    `windowed_sort="kernel"`, which renders only. Runs where its inputs live;
-    CUDA tensors go through the CUDA kernels."""
+    scales, quats, colors/shs, obj_features and `mean2d_offset` (see
+    `preprocess`), except the windowed path with `windowed_sort="kernel"`,
+    which renders only. Runs where its inputs live; CUDA tensors go through
+    the CUDA kernels.
+
+    `fused=False` forces the classic path, as in the JAX package. There it
+    also swaps the Pallas forward for the XLA scan, because its Pallas
+    forward's VJP recomputes through XLA, so a training step would pay for
+    both. Here the classic forward kernel has a backward kernel of its own,
+    so the classic path launches `composite_fused` and `composite_fused_bwd`
+    on CUDA tensors whatever `fused` says."""
     P = means3d.shape[0]
     dev = means3d.device
     W, H = camera.width, camera.height
@@ -949,11 +974,13 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
 
     pre = preprocess(means3d, opacities, scales, quats, camera, cfg,
                      colors=colors, shs=shs, sh_degree=sh_degree,
-                     active_mask=active_mask)
+                     cov3d_precomp=cov3d_precomp, active_mask=active_mask,
+                     mean2d_offset=mean2d_offset)
     n_feat = 3 + O + 4
     R = int(round(cfg.max_tiles_per_gaussian ** 0.5))
     use_windowed = bool(
         (cfg.windowed if windowed is None else windowed)
+        and fused is not False
         and cfg.tile_capacity % 128 == 0
         and R * R == cfg.max_tiles_per_gaussian
         and cfg.tile * cfg.tile >= 8
@@ -1041,3 +1068,10 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
         overflow_tile_live=ov_tile_live.to(torch.int32),
         _is_used_fn=is_used_fn,
     )
+
+
+def mark_visible(means3d: torch.Tensor, camera: Camera, near: float = 0.2) -> torch.Tensor:
+    """`markVisible` (`rasterize_points.cu:218-237`): view depth above `near`."""
+    V = camera.world_view
+    z = means3d @ V[2, :3] + V[2, 3]
+    return z > near

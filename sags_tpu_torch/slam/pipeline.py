@@ -105,6 +105,21 @@ def _pack_metrics(m: slam_step_mod.StepMetrics) -> torch.Tensor:
         m.overflow_big, m.tile_peak, m.overflow_tile_live)])
 
 
+def camera_for(cfg: SLAMConfig, frame: Frame, pose: np.ndarray, device) -> Camera:
+    """The camera of `frame` at `pose` (camera-to-world, 4×4): the preset's
+    intrinsics scaled to the frame's image, LiDAR axes turned under
+    `cfg.lidar_axes`."""
+    H, W = frame.image.shape[1:]
+    cam_cfg = cfg.camera
+    fovx = focal2fov(cam_cfg.fx * W / cam_cfg.width, W)
+    fovy = focal2fov(cam_cfg.fy * H / cam_cfg.height, H)
+    R = np.asarray(pose, np.float32)[:3, :3]
+    if cfg.lidar_axes:
+        R = R @ LIDAR_TO_CAM
+    return make_camera(R, np.asarray(pose, np.float32)[:3, 3], W, H, fovx, fovy,
+                       device=device)
+
+
 class SLAMPipeline:
     # frames a metrics snapshot ages before it is read
     _DRAIN_LAG = 2
@@ -188,15 +203,7 @@ class SLAMPipeline:
         self.state = self.state._replace(map=new_map, opt_state=new_opt)
 
     def _camera_for(self, frame: Frame, pose: np.ndarray) -> Camera:
-        H, W = frame.image.shape[1:]
-        cam_cfg = self.cfg.camera
-        fovx = focal2fov(cam_cfg.fx * W / cam_cfg.width, W)
-        fovy = focal2fov(cam_cfg.fy * H / cam_cfg.height, H)
-        R = np.asarray(pose, np.float32)[:3, :3]
-        if self.cfg.lidar_axes:
-            R = R @ LIDAR_TO_CAM
-        return make_camera(R, np.asarray(pose, np.float32)[:3, 3], W, H, fovx, fovy,
-                           device=self.device)
+        return camera_for(self.cfg, frame, pose, self.device)
 
     def _rederive_windowed(self, r):
         """Size every windowed-path buffer from one occupancy probe of the

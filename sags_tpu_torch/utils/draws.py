@@ -1,7 +1,8 @@
 """Random-draw hooks. Ported functions that sample (the obj embedding of new
-Gaussians, the cls3d sample, the classifier init) take U[0,1) draws from one
-of these objects, so a caller can replay numbers made elsewhere — torch
-cannot reproduce `jax.random`."""
+Gaussians, the cls3d sample, the classifier init, the split offsets of
+densification) take U[0,1) or N(0,1) draws from one of these objects, so a
+caller can replay numbers made elsewhere — torch cannot reproduce
+`jax.random`."""
 
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ class TorchDraws:
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.device, dtype=torch.float32)
 
+    def normal(self, shape) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self.generator,
+                           device=self.device, dtype=torch.float32)
+
 
 class ReplayDraws:
     """Hands out given arrays in order; each must have the requested shape."""
@@ -34,10 +39,16 @@ class ReplayDraws:
     def push(self, *arrays: np.ndarray) -> None:
         self.queue.extend(arrays)
 
-    def uniform(self, shape) -> torch.Tensor:
+    def _pop(self, shape) -> torch.Tensor:
         if not self.queue:
             raise RuntimeError(f"no replayed draw left for shape {tuple(shape)}")
         a = np.asarray(self.queue.pop(0), np.float32)
         if a.shape != tuple(shape):
             raise ValueError(f"replayed draw {a.shape} != requested {tuple(shape)}")
         return torch.from_numpy(a.copy()).to(self.device)
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._pop(shape)
+
+    def normal(self, shape) -> torch.Tensor:
+        return self._pop(shape)

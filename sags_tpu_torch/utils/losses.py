@@ -1,5 +1,6 @@
-"""Image losses (`sags_tpu.utils.losses` in torch): masked L1 and SSIM with
-the separable banded-matrix Gaussian blur."""
+"""Image losses (`sags_tpu.utils.losses` in torch): masked L1 and L2, SSIM
+with the separable banded-matrix Gaussian blur, and the photometric loss
+(1−λ)·L1 + λ·(1−SSIM)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,14 @@ def l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask_zeros: bool = True):
     if mask_zeros:
         loss = torch.where(gt != 0, loss, torch.zeros_like(loss))
     return loss, torch.mean(loss)
+
+
+def l2_loss(pred: torch.Tensor, gt: torch.Tensor, mask_zeros: bool = True) -> torch.Tensor:
+    """Mean squared error; `gt == 0` is masked."""
+    loss = (pred - gt) ** 2
+    if mask_zeros:
+        loss = torch.where(gt != 0, loss, torch.zeros_like(loss))
+    return torch.mean(loss)
 
 
 @functools.lru_cache(maxsize=16)
@@ -67,3 +76,11 @@ def ssim(img: torch.Tensor, gt: torch.Tensor, window_size: int = 11,
     ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
     return ssim_map, torch.mean(ssim_map)
+
+
+def rgb_loss(pred: torch.Tensor, gt: torch.Tensor, lambda_dssim: float = 0.2) -> torch.Tensor:
+    """(1−λ)·L1 + λ·(1−SSIM), the SLAM node's photometric loss
+    (`scripts/gaussian_splatting.py:805-810`)."""
+    _, l1 = l1_loss(pred, gt)
+    _, s = ssim(pred, gt)
+    return (1.0 - lambda_dssim) * l1 + lambda_dssim * (1.0 - s)

@@ -32,7 +32,9 @@ def _quats(rng, n=64):
 def test_import_leaves_jax_unloaded():
     """conftest imports JAX in this process, so check in a fresh one."""
     code = ("import sys; import sags_tpu_torch.slam.pipeline, sags_tpu_torch.interop; "
-            "import sags_tpu_torch.ops.rasterize; "
+            "import sags_tpu_torch.ops.rasterize, sags_tpu_torch.slam.offline; "
+            "import sags_tpu_torch.io.colmap_scene, sags_tpu_torch.io.ply, "
+            "sags_tpu_torch.io.pcd; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'flax', 'optax', 'sags_tpu.'))]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -167,7 +167,9 @@ def test_photo_update_matches_jax(extrinsic):
 
 def surfel_folds(mod, pts_list, capacity, world_extent, intensities):
     to = jnp.asarray if mod is je else T
-    sm = mod.surfel_map_init(resolution=0.5, capacity=capacity, world_extent=world_extent)
+    kw = {} if mod is je else {"device": "cpu"}
+    sm = mod.surfel_map_init(resolution=0.5, capacity=capacity, world_extent=world_extent,
+                             **kw)
     for pts, it in zip(pts_list, intensities):
         sm = mod.surfel_map_update(sm, to(pts), to(np.ones(len(pts), bool)),
                                    intensity=None if it is None else to(it))
@@ -255,10 +257,23 @@ def test_surfel_map_init_raises_where_jax_does(kw):
         jax_raised = True
     if jax_raised:
         with pytest.raises(ValueError):
-            te.surfel_map_init(**kw)
+            te.surfel_map_init(**kw, device="cpu")
     else:
-        sm = te.surfel_map_init(**kw)
+        sm = te.surfel_map_init(**kw, device="cpu")
         np.testing.assert_array_equal(sm.dims.numpy(), np.asarray(je.surfel_map_init(**kw).dims))
+
+
+def test_entry_points_raise_without_a_gpu():
+    """`init_state` and `surfel_map_init` run on the card unless given a
+    device: without one they raise, as `resolve_device` does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        te.init_state()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        te.surfel_map_init()
+    assert te.init_state(device="cpu").P.device.type == "cpu"
+    assert te.surfel_map_init(device="cpu").keys.device.type == "cpu"
 
 
 def test_synthetic_imu_matches_jax():
