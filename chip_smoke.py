@@ -87,7 +87,9 @@ Phases, each failing the run (non-zero exit, no result line):
      `train_sam` steps of batch 16 from a random SAM (seed 0): the mean loss
      of the last 10 steps below the first 10's, `save_fp16` read back by
      `load_pretrained` as the float16-rounded parameters bitwise, and
-     whether two backward passes of one batch agree bitwise (reported);
+     two backward passes of one batch bitwise equal in every parameter
+     (the upscaling's transposed convolutions are a matmul and a pixel
+     shuffle, `models.sam.ConvTranspose2x2`);
   8. tracking: `SLAMPipeline.run` over the loop's first 16 + 8 frames under
      "vgicp" (its ATE within 5% of the JAX package's on the same scans,
      `tools/reference_vgicp_ate.py`) and under "gicp_map" (the map
@@ -131,12 +133,40 @@ Phases, each failing the run (non-zero exit, no result line):
      world as points3D), `load_colmap_scene`, then `train_offline_scene`
      for 100 iterations: its radius, finite and falling losses, one launch
      of each kernel an iteration; (c) `save_map_ply` / `load_map_ply` of
-     (a)'s compacted map, every field read back bitwise.
+     (a)'s compacted map, every field read back bitwise;
+ 11. the CLI, `sags_tpu_torch.cli.main.main(argv)` in this process: (a)
+     run-slam with the SLAM loop cell's dataset size and capacity (640x512,
+     a 65,536-point world, 4096-point scans, step 0.075, capacity 2^18,
+     gicp; the rest at `SLAMConfig()`'s defaults) over 24 frames and 20
+     post-training steps with --checkpoint, --save and --traj-out: the JAX
+     CLI's JSON keys, a finite ATE, the launches exact (composite_fused_bwd
+     one a training iteration, composite_fused that plus one a frame for
+     the dataset's ground truth, fill_table that plus one an eval render,
+     composite_windowed one an eval render), and fill_table,
+     composite_fused and its backward held at the run's final training
+     config on its map from its last keyframe's view, composite_windowed
+     bitwise at its eval config on the first eval view; (b) the checkpoint read back
+     bitwise (map, Adam moments, classifier, step, generator state), one
+     `slam_step` from it and from the run's state bitwise equal, the same
+     checkpoint read on the CPU to the same numbers, save and load seconds
+     and bytes, and run-slam --resume over 4 more frames keeping "gicp";
+     (c) run-slam over 8 frames under vgicp, gicp_map and esikf, and with
+     --semantics under each mask back-end (geometric, SAM); train over 12
+     of the cell's frames for 100 iterations (one launch of each classic
+     kernel an iteration, the forward's two also once for each
+     ground-truth image the dataset renders; the three held on its map at
+     its config, the needle rule if the map holds a pair at the alpha
+     gate), render of the saved map (the
+     PNG decodes to the rendered image), eval, run-gicp in both modes with
+     --out-poses, align --method all on the structured pair written as
+     .npy (the GICP family within 5 cm / 1°), and serve in a thread feeding
+     run-slam --dataset socket for 4 frames.
 Launch counts are zeroed just before each main path (each loop, each eval
-mode, each offline run) and read just after. The line before the last
-holds each kernel's launches on its path (rows 1-3 also in the offline
-run, `offline_launches`), its time, its plain version's time, the library
-call's time and its bound. A kernel's `ms` and `library_ms` are device time
+mode, each offline run, the CLI's run-slam and train) and read just after;
+`cli_launches` on the kernels line is the CLI run-slam's. The line before
+the last holds each kernel's launches on its path (rows 1-3 also in the
+offline run, `offline_launches`), its time, its plain version's time, the
+library call's time and its bound. A kernel's `ms` and `library_ms` are device time
 from a CUDA graph of its launches (`graph_ms`); `stream_ms` and `plain_ms`
 time back-to-back launches from Python (`cuda_ms`), which for a kernel of a
 few microseconds is the host's launch rate. The last stdout line is
@@ -1349,6 +1379,60 @@ def loop_bwd_check(device, pipe, camera):
             "composite_windowed": fwd}
 
 
+def eval_frame_check(m, cam, rc, sh_degree, mode) -> dict:
+    """One eval render's windowed compositor (`mode`: "windowed_host" or
+    "windowed_kernel") bitwise against its plain version on the inputs the
+    render prepares from map `m` for `cam` at raster config `rc`, its strip
+    cull dropping no gated strip. Returns its error, time and cull share."""
+    import torch
+
+    from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.ops import rasterize as rz
+    from sags_tpu_torch.ops import windowed as win
+
+    tiles_x, tiles_y = -(-cam.width // 16), -(-cam.height // 16)
+    kw = dict(alpha_min=rc.alpha_min, t_min=rc.transmittance_min,
+              chunk=rz._windowed_chunk(rc),
+              n_span=int(round(rc.max_tiles_per_gaussian ** 0.5)))
+    with torch.no_grad():
+        pre = rz.preprocess(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
+                            gm.get_rotation(m), cam, rc, shs=gm.get_shs(m),
+                            sh_degree=sh_degree, active_mask=m.active)
+        if mode == "windowed_host":
+            G_s, _, tl, counts, b, d, n, *_ = rz._prepare_windowed(
+                pre, m.obj_dc, tiles_x, tiles_y, rc)
+            got = win.composite_windowed(G_s, tl, counts, b, d, n, 16, tiles_x, **kw)
+            want = win.composite_windowed_plain(G_s, tl, counts, b, d, n, 16, tiles_x, **kw)
+            rows = win.window_rows(tl, b, d, n, kw["n_span"])
+            cnt = counts
+            ms = cuda_ms(lambda: win.composite_windowed(G_s, tl, counts, b, d, n, 16,
+                                                        tiles_x, **kw), 5)
+        else:
+            G_s, b, d, n, ss, se, *_ = rz._prepare_windowed(
+                pre, m.obj_dc, tiles_x, tiles_y, rc, build_table=False)
+            skw = dict(kw, w_blocks=rc.window_blocks, k_tile=rc.tile_capacity)
+            got = win.composite_windowed_sorted(G_s, b, d, n, ss, se, 16, tiles_x, **skw)
+            want = win.composite_windowed_sorted_plain(G_s, b, d, n, ss, se, 16, tiles_x,
+                                                       **skw)
+            assert torch.equal(got[2], want[2]), "eval frame: nv disagrees"
+            keys = win.window_keys_plain(G_s, b, d, n, ss, se, 16, tiles_x, rc.alpha_min,
+                                         kw["n_span"], rc.window_blocks)
+            ids, nv = win.sorted_ids_plain(keys, rc.tile_capacity)
+            rows = win.window_rows(ids, b, d, n, kw["n_span"])
+            cnt = torch.clamp(nv, max=rc.tile_capacity)
+            ms = cuda_ms(lambda: win.composite_windowed_sorted(G_s, b, d, n, ss, se, 16,
+                                                               tiles_x, **skw), 5)
+        cull = cull_share(G_s, rows, cnt, tiles_x, rc.alpha_min)
+    torch.cuda.synchronize()
+    err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        f"{mode} eval frame: {err} from the plain version"
+    assert cull["gated_strips_dropped"] == 0, f"{mode} eval frame's cull: {cull}"
+    return {"max_abs_err": err, "ms": ms, "strip_cull": cull,
+            "window_blocks": rc.window_blocks, "tile_capacity": rc.tile_capacity,
+            "max_tiles_per_gaussian": rc.max_tiles_per_gaussian}
+
+
 def eval_phase(device, pipe, frames, poses):
     """`SLAMPipeline.evaluate` of the loop's map at the estimated poses, in
     three render modes; each windowed compositor checked on one frame."""
@@ -1358,10 +1442,7 @@ def eval_phase(device, pipe, frames, poses):
     import torch
 
     from sags_tpu_torch.eval.metrics import psnr
-    from sags_tpu_torch.mapping import gaussian_map as gm
     from sags_tpu_torch.ops import _build
-    from sags_tpu_torch.ops import rasterize as rz
-    from sags_tpu_torch.ops import windowed as win
     from sags_tpu_torch.slam import step as slam_step
 
     base_cfg = pipe.cfg
@@ -1429,9 +1510,7 @@ def eval_phase(device, pipe, frames, poses):
 
     # one frame: the CUDA compositors against the plain functions on the
     # inputs the render prepared
-    m = pipe.state.map
     cam = cams[len(cams) // 2]
-    tiles_x, tiles_y = -(-cam.width // 16), -(-cam.height // 16)
     checks = {}
     for mode in ("windowed_host", "windowed_kernel"):
         raster, derive = modes[mode]
@@ -1440,47 +1519,7 @@ def eval_phase(device, pipe, frames, poses):
             rc = pipe.eval_config(derive).raster
         finally:
             pipe.cfg = base_cfg
-        kw = dict(alpha_min=rc.alpha_min, t_min=rc.transmittance_min,
-                  chunk=rz._windowed_chunk(rc),
-                  n_span=int(round(rc.max_tiles_per_gaussian ** 0.5)))
-        with torch.no_grad():
-            pre = rz.preprocess(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
-                                gm.get_rotation(m), cam, rc, shs=gm.get_shs(m),
-                                sh_degree=base_cfg.map.sh_degree, active_mask=m.active)
-            if mode == "windowed_host":
-                G_s, _, tl, counts, b, d, n, *_ = rz._prepare_windowed(
-                    pre, m.obj_dc, tiles_x, tiles_y, rc)
-                got = win.composite_windowed(G_s, tl, counts, b, d, n, 16, tiles_x, **kw)
-                want = win.composite_windowed_plain(G_s, tl, counts, b, d, n, 16, tiles_x,
-                                                    **kw)
-            else:
-                G_s, b, d, n, ss, se, *_ = rz._prepare_windowed(
-                    pre, m.obj_dc, tiles_x, tiles_y, rc, build_table=False)
-                skw = dict(kw, w_blocks=rc.window_blocks, k_tile=rc.tile_capacity)
-                got = win.composite_windowed_sorted(G_s, b, d, n, ss, se, 16, tiles_x, **skw)
-                want = win.composite_windowed_sorted_plain(G_s, b, d, n, ss, se, 16,
-                                                           tiles_x, **skw)
-                assert torch.equal(got[2], want[2]), "eval frame: nv disagrees"
-            if mode == "windowed_host":
-                rows = win.window_rows(tl, b, d, n, kw["n_span"])
-                cnt = counts
-                ms = cuda_ms(lambda: win.composite_windowed(G_s, tl, counts, b, d, n, 16,
-                                                            tiles_x, **kw), 5)
-            else:
-                keys = win.window_keys_plain(G_s, b, d, n, ss, se, 16, tiles_x, rc.alpha_min,
-                                             kw["n_span"], rc.window_blocks)
-                ids, nv = win.sorted_ids_plain(keys, rc.tile_capacity)
-                rows = win.window_rows(ids, b, d, n, kw["n_span"])
-                cnt = torch.clamp(nv, max=rc.tile_capacity)
-                ms = cuda_ms(lambda: win.composite_windowed_sorted(G_s, b, d, n, ss, se, 16,
-                                                                   tiles_x, **skw), 5)
-            cull = cull_share(G_s, rows, cnt, tiles_x, rc.alpha_min)
-        torch.cuda.synchronize()
-        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
-            f"{mode} eval frame: {err} from the plain version"
-        assert cull["gated_strips_dropped"] == 0, f"{mode} eval frame's cull: {cull}"
-        checks[mode] = {"max_abs_err": err, "ms": ms, "strip_cull": cull}
+        checks[mode] = eval_frame_check(pipe.state.map, cam, rc, base_cfg.map.sh_degree, mode)
     emit({"phase": "eval", "every": EVAL_EVERY, "modes": results, "frame_check": checks})
     return results, checks
 
@@ -1824,8 +1863,7 @@ def sam_train_phase(device, steps=100, batch=16):
     by `make_training_data` at its defaults on the card, `steps` steps of
     `train_sam` (lr 3e-4, jitter 4) timed by CUDA events, the loss trend,
     the float16 file read back, and two backward passes of one batch
-    compared (cuDNN's convolution backwards need not be deterministic:
-    reported, not asserted)."""
+    bitwise equal in every parameter."""
     import os
     import tempfile
 
@@ -1870,6 +1908,9 @@ def sam_train_phase(device, steps=100, batch=16):
 
     g1, g2 = grads(), grads()
     differ = [n for (n, _), a, b in zip(sam.named_parameters(), g1, g2) if not torch.equal(a, b)]
+    ups = {n: float(g.abs().max()) for (n, _), g in zip(sam.named_parameters(), g1)
+           if ".up1." in n or ".up2." in n}
+    assert len(ups) == 4 and min(ups.values()) > 0, ups
     res = {"phase": "sam_train", "examples": len(data), "data_seconds": data_s,
            "steps": steps, "batch": batch, "ms_per_step": ms_per_step,
            "loss_first_10": float(L[:10].mean()), "loss_last_10": float(L[-10:].mean()),
@@ -1881,6 +1922,7 @@ def sam_train_phase(device, steps=100, batch=16):
     assert res["loss_last_10"] < res["loss_first_10"], (res["loss_first_10"],
                                                        res["loss_last_10"])
     assert roundtrip, "save_fp16 / load_pretrained did not give the float16 parameters"
+    assert not differ, f"gradients differ over two passes: {differ}"
     return res
 
 
@@ -2526,6 +2568,323 @@ def ply_round_trip(device, m) -> dict:
             and int(back.active.sum()) == n}
 
 
+# the keys of the JAX CLI's run-slam JSON line (`sags_tpu/cli/main.py:176-189`)
+RUN_SLAM_KEYS = {"frames", "train_iters", "fps", "fps_steady", "ate_rmse", "mean_psnr",
+                 "mean_ssim", "mean_lpips", "lpips_net", "eval_overflow_pairs",
+                 "active_gaussians", "keyframes", "timed_out", "tracking"}
+# the SLAM loop cell's dataset and map, as CLI flags
+CLI_CELL = ["--width", str(SLICE_W), "--height", str(SLICE_H), "--world-points", "65536",
+            "--scan-points", "4096", "--step", "0.075"]
+
+
+def cli_main(argv, device):
+    """`sags_tpu_torch.cli.main.main(argv)` in this process, its stdout's
+    last lines echoed. Returns (its result, its JSON lines parsed)."""
+    import contextlib
+    import io
+
+    from sags_tpu_torch.cli import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main([*argv, "--device", str(device)])
+    text = buf.getvalue()
+    print("\n".join("# cli: " + ln for ln in text.strip().splitlines()[-3:]), flush=True)
+    return out, [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def read_png(path: str):
+    """An 8-bit RGB PNG whose rows all use filter 0 (what the CLI's writer
+    makes) as an [H, W, 3] uint8 array; stdlib and numpy only."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+    pos, idat, W = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            W, H, depth, ctype = struct.unpack(">IIBB", body[:10])
+            assert (depth, ctype) == (8, 2), (depth, ctype)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 3 * W)
+    assert (rows[:, 0] == 0).all(), "a row filter other than 0"
+    return rows[:, 1:].reshape(H, W, 3)
+
+
+def states_bitwise(a, b, generator=True) -> dict:
+    """Two port `SLAMState`s compared bit for bit, leaf by leaf in the
+    checkpoint's order (`checkpoint._leaves`; tensors moved to the CPU, so
+    the two may live on different devices) and, with `generator`, their draw
+    hooks' generator states. Returns the differing leaves' indices and
+    whether the generators agree; `assert_states_bitwise` holds them."""
+    import torch
+
+    from sags_tpu_torch.slam import checkpoint
+
+    def cpu(x):
+        return torch.as_tensor(x).cpu()
+
+    la, lb = checkpoint._leaves(a), checkpoint._leaves(b)
+    differ = [i for i, (x, y) in enumerate(zip(la, lb))
+              if cpu(x).dtype != cpu(y).dtype or not torch.equal(cpu(x), cpu(y))]
+    out = {"leaves": len(la), "leaves_differing": differ}
+    if generator:
+        out["generator"] = torch.equal(a.rng.generator.get_state(),
+                                       b.rng.generator.get_state())
+    return out
+
+
+def assert_states_bitwise(a, b, generator=True) -> None:
+    """`states_bitwise` held: no leaf differs and (with `generator`) the
+    generator states agree."""
+    r = states_bitwise(a, b, generator)
+    assert not r["leaves_differing"] and r.get("generator", True), r
+
+
+def cli_phase(device, n_frames=24, post_train=20, cell=CLI_CELL, capacity=2 ** 18,
+              train_frames=12, train_iters=100, mode_frames=8):
+    """The port's CLI (`sags_tpu_torch.cli.main.main`) in this process on the
+    card: (a) run-slam with the SLAM loop cell's dataset size and capacity
+    with a checkpoint, the map and the trajectory written, launch counts
+    zeroed just before and read just after, its kernels then held against
+    their plain versions on its own map at its own configs; (b) the checkpoint read back bitwise, one `slam_step`
+    from it and from the run's state bitwise, read on the CPU, and
+    `--resume`; (c) run-slam under the other trackers and mask back-ends,
+    train, render, eval, run-gicp in both modes, align, and serve feeding
+    run-slam over the socket."""
+    import os
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.core.config import SLAMConfig
+    from sags_tpu_torch.io.datasets import SyntheticDataset
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.slam import checkpoint
+    from sags_tpu_torch.slam import pipeline
+    from sags_tpu_torch.slam import step as slam_step
+    from sags_tpu_torch.slam.pipeline import camera_for
+
+    work = tempfile.mkdtemp(prefix="sags_cli_")
+    path = {k: os.path.join(work, k) for k in ("ck", "ck2", "map.ply", "traj.txt",
+                                               "train.ply", "view.png", "gicp_scan.txt",
+                                               "gicp_map.txt", "t.npy", "s.npy")}
+    res = {"phase": "cli"}
+
+    # (a) run-slam at the loop cell's size; its pipeline is kept from the
+    # evaluate call for the kernel checks at its own configs
+    seen = {}
+    real_evaluate = pipeline.SLAMPipeline.evaluate
+
+    def evaluate(self, *args, **kw):
+        seen["pipe"] = self
+        return real_evaluate(self, *args, **kw)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with swapped(pipeline.SLAMPipeline, "evaluate", evaluate):
+        run, (line,) = cli_main(["run-slam", *cell, "--capacity", str(capacity),
+                                 "--point-budget", "4096", "--tracking", "gicp",
+                                 "--frames", str(n_frames), "--post-train", str(post_train),
+                                 "--checkpoint", path["ck"], "--save", path["map.ply"],
+                                 "--traj-out", path["traj.txt"]], device)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in _build.kernels()}
+    assert set(line) == RUN_SLAM_KEYS, sorted(set(line) ^ RUN_SLAM_KEYS)
+    assert line["frames"] == n_frames and line["tracking"] == "gicp", line
+    assert line["ate_rmse"] is not None and math.isfinite(line["ate_rmse"]), line
+    iters = line["train_iters"]
+    assert iters >= n_frames + post_train - 1, line
+    # one launch of each an iteration; the forward's two also render each
+    # frame's ground truth once (the dataset, classic path), and the eval
+    # (every n_frames // 5-th frame, windowed host table) launches
+    # fill_table and composite_windowed once a frame
+    n_eval = len(range(0, n_frames, max(1, n_frames // 5)))
+    want = {"sags_composite_fused_bwd": iters, "sags_composite_fused": iters + n_frames,
+            "sags_fill_table": iters + n_frames + n_eval, "sags_composite_windowed": n_eval}
+    assert {s: launches[s] for s in want} == want, (launches, want)
+    traj = np.loadtxt(path["traj.txt"])
+    assert traj.shape == (n_frames, 8) and np.isfinite(traj).all()
+    res["run_slam"] = dict(line, wall_seconds=wall_s, ms_per_frame=1e3 / line["fps"],
+                           ms_per_frame_steady=1e3 / line["fps_steady"],
+                           launches={s: launches[s] for s in want})
+
+    # its kernels against their plain versions on its own inputs: the
+    # classic three at the training config it ended with, on its last
+    # keyframe's view; the windowed host-table compositor at the eval
+    # config, on the first eval frame's view (its estimated pose)
+    pipe = seen["pipe"]
+    cfg = pipe.cfg
+    fwd, bwd = loop_fused_check(device, run.state.map, cfg, pipe.keyframes[-1].camera)
+    flags = dict(zip(cell[::2], cell[1::2]))
+    ds = SyntheticDataset(n_frames=1, width=int(flags["--width"]),
+                          height=int(flags["--height"]), n_world=int(flags["--world-points"]),
+                          pts_per_frame=int(flags["--scan-points"]),
+                          step=float(flags["--step"]), clutter=0.35, imu_substeps=5,
+                          device=device)
+    f0 = next(iter(ds))
+    eval_check = eval_frame_check(run.state.map, camera_for(cfg, f0, run.poses_est[0], device),
+                                  pipe.eval_config(True).raster, cfg.map.sh_degree,
+                                  "windowed_host")
+    del pipe, seen
+    res["run_slam"].update(composite_fused_at_run=fwd, composite_fused_bwd_at_run=bwd,
+                           composite_windowed_at_eval=eval_check)
+    assert_loop_fused(fwd, bwd, "the CLI's run-slam")
+
+    # (b) the checkpoint: read back, a step from each, on the CPU, resumed
+    t0 = time.perf_counter()
+    back, cfg_back = checkpoint.load_state(path["ck"], device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert cfg_back == cfg, "the checkpoint's config is not the run's"
+    t0 = time.perf_counter()
+    checkpoint.save_state(path["ck2"], run.state, cfg)  # as the CLI's --checkpoint
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu, _ = checkpoint.load_state(path["ck"], device="cpu")
+    load_cpu_s = time.perf_counter() - t0
+    same = states_bitwise(run.state, back)
+    same_cpu = states_bitwise(run.state, on_cpu, generator=False)
+    nbytes = sum(os.path.getsize(os.path.join(path["ck"], f)) for f in os.listdir(path["ck"]))
+    cam = camera_for(cfg, f0, np.asarray(f0.pose), device)
+    img = torch.as_tensor(f0.image, device=device)
+    objs = torch.zeros(img.shape[1:], dtype=torch.int32, device=device)
+    s1, m1 = slam_step.slam_step(run.state, cam, img, objs, cfg)
+    s2, m2 = slam_step.slam_step(back, cam, img, objs, cfg)
+    stepped = dict(states_bitwise(s1, s2), loss=torch.equal(m1.loss, m2.loss))
+    _, (line_r,) = cli_main(["run-slam", *cell, "--point-budget", "4096", "--frames", "4",
+                             "--resume", path["ck"]], device)
+    res["checkpoint"] = {"save_seconds": save_s, "load_seconds": load_s,
+                         "load_cpu_seconds": load_cpu_s, "bytes": nbytes,
+                         "capacity": int(run.state.map.capacity), "bitwise": same,
+                         "cpu_bitwise": same_cpu, "step_bitwise": stepped,
+                         "resumed": {k: line_r[k] for k in ("frames", "train_iters",
+                                                            "tracking", "ate_rmse")}}
+    for r in (same, same_cpu, stepped):
+        assert not r["leaves_differing"] and r.get("generator", True) and r.get("loss", True), r
+    assert line_r["tracking"] == "gicp" and line_r["frames"] == 4, line_r
+
+    # (c) run-slam under the other trackers and with either mask back-end
+    res["run_slam_modes"] = {}
+    for name, flags in (("vgicp", ["--tracking", "vgicp"]),
+                        ("gicp_map", ["--tracking", "gicp_map"]),
+                        ("esikf", ["--tracking", "esikf"]),
+                        ("semantics_geometric", ["--tracking", "gicp", "--semantics"]),
+                        ("semantics_sam", ["--tracking", "gicp", "--semantics",
+                                           "--mask-backend", "sam"])):
+        _, (ln,) = cli_main(["run-slam", *cell, "--capacity", str(capacity),
+                             "--point-budget", "4096", "--frames", str(mode_frames),
+                             "--post-train", "0", *flags], device)
+        res["run_slam_modes"][name] = {k: ln[k] for k in ("tracking", "ate_rmse",
+                                                          "fps_steady", "keyframes",
+                                                          "train_iters", "mean_psnr")}
+        assert ln["frames"] == mode_frames and ln["tracking"] == flags[1], ln
+        assert ln["ate_rmse"] is not None and math.isfinite(ln["ate_rmse"]), ln
+
+    # the other subcommands
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained, (line_t,) = cli_main(["train", *cell, "--frames", str(train_frames), "--iters",
+                                   str(train_iters), "--save", path["train.ply"]], device)
+    torch.cuda.synchronize()
+    train_launches = {k.symbol: k.launches for k in _build.kernels()}
+    res["train"] = dict(line_t, wall_seconds=time.perf_counter() - t0,
+                        launches={s: train_launches[s] for s in SLAM_KERNELS})
+    assert math.isfinite(line_t["final_loss"]), line_t
+    # one launch of each an iteration; the forward's two also render each of
+    # the dataset's ground-truth images once (the classic path)
+    assert train_launches["sags_composite_fused_bwd"] == train_iters, train_launches
+    assert all(train_launches[s] == train_iters + train_frames
+               for s in ("sags_fill_table", "sags_composite_fused")), train_launches
+    # its kernels on its map at its config (the defaults), from frame 0's view;
+    # the offline phase's bars
+    fwd, bwd = loop_fused_check(device, trained.map, SLAMConfig(),
+                                camera_for(SLAMConfig(), f0, np.asarray(f0.pose), device))
+    res["train"].update(composite_fused_at_map=fwd, composite_fused_bwd_at_map=bwd)
+    gate = fwd["max_abs_err"] > 1e-3 and fwd["near_gate_pairs_at_worst_pixel"] >= 1
+    assert_loop_fused(fwd, bwd, "the CLI's train", gate_pixels=gate)
+
+    img, _ = cli_main(["render", "--map", path["map.ply"], "--out", path["view.png"],
+                       *cell[:4]], device)
+    png_same = bool(np.array_equal(read_png(path["view.png"]), img))
+    _, (line_e,) = cli_main(["eval", *cell, "--map", path["map.ply"], "--frames",
+                             str(n_frames), "--every", str(EVAL_EVERY)], device)
+    res["render"] = {"png_decodes_to_image": png_same, "mean": float(img.mean())}
+    res["eval"] = line_e
+    assert png_same and img.max() > 0
+    assert line_e["n_eval"] == n_frames // EVAL_EVERY and math.isfinite(line_e["psnr"])
+
+    res["run_gicp"] = {}
+    for mode in ("scan", "map"):
+        poses, (line_g,) = cli_main(["run-gicp", *cell, "--frames", str(n_frames),
+                                     "--mode", mode, "--keyframe-every", "4",
+                                     "--out-poses", path[f"gicp_{mode}.txt"]], device)
+        kitti = np.loadtxt(path[f"gicp_{mode}.txt"])
+        assert kitti.shape == (n_frames, 12), kitti.shape
+        assert np.allclose(kitti, np.asarray(poses)[:, :3, :4].reshape(n_frames, 12),
+                           atol=1e-6)
+        assert line_g["ate_rmse"] is not None and math.isfinite(line_g["ate_rmse"])
+        res["run_gicp"][mode] = line_g
+
+    from sags_tpu_torch.core.transforms import se3_matrix, so3_exp
+
+    target = structured_cloud(np.random.default_rng(5))
+    T_gt = se3_matrix(so3_exp(torch.tensor([0.02, -0.03, 0.05])),
+                      torch.tensor([0.15, -0.2, 0.1])).numpy()
+    Ti = np.linalg.inv(T_gt)
+    world = structured_cloud(np.random.default_rng(9))
+    np.save(path["t.npy"], target)
+    np.save(path["s.npy"], (world @ Ti[:3, :3].T + Ti[:3, 3]).astype(np.float32))
+    # registration_phase's voxel size; its 5 cm / 1° gate for the GICP family,
+    # NDT (at align_points' defaults) reported
+    Ts, res["align"] = cli_main(["align", "--target", path["t.npy"], "--source",
+                                 path["s.npy"], "--method", "all", "--n", "3",
+                                 "--voxel-resolution", "0.5"], device)
+    assert len(res["align"]) == 5, res["align"]
+    for row, T in zip(res["align"], Ts):
+        te, re_ = pose_errors(T, T_gt)
+        row.update(trans_err_m=te, rot_err_deg=re_)
+        assert np.isfinite(T).all(), row
+        if row["method"] != "NDT_CUDA":
+            assert te < 0.05 and re_ < 1.0, row
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = str(sk.getsockname()[1])
+    from sags_tpu_torch.cli import main as cli
+
+    # serve prints nothing on stdout: called directly, as cli_main's
+    # redirection of stdout is the whole process's
+    server = threading.Thread(target=cli.main, args=(["serve", *cell, "--frames", "4",
+                                                      "--port", port, "--device",
+                                                      str(device)],), daemon=True)
+    server.start()
+    _, (line_s,) = cli_main(["run-slam", "--dataset", "socket", "--port", port,
+                             "--point-budget", "4096", "--capacity", str(capacity),
+                             "--tracking", "gicp", "--post-train", "0"], device)
+    server.join(60.0)
+    res["serve_socket"] = {k: line_s[k] for k in ("frames", "timed_out", "train_iters",
+                                                  "tracking")}
+    assert not server.is_alive(), "serve did not finish"
+    assert line_s["frames"] == 4 and not line_s["timed_out"], line_s
+    emit(res)
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -2568,6 +2927,7 @@ def main() -> int:
     tracking_phase(device, frames, dict(classic, poses=poses, lm_log=pipe.lm_log))
     module_launches = esikf_phase(device, frames, dict(classic, poses=poses))
     offline_launches = offline_phase(device, frames, classic["dataset"])
+    _, cli_launches = cli_phase(device)
 
     # (source, TPU kernel, C symbol, the path whose launches count, frames on it)
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -2617,6 +2977,7 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r.get("library_ms"),
+            "cli_launches": cli_launches[sym],
             **({"empty_kernel_ms": r["empty_ms"],
                 "torch_full_ms": r["full_ms"], "semantic_loop_launches": sem["launches"][sym]}
                if name == "fill_table" else {}),

@@ -116,7 +116,7 @@ def _masked_append(count: torch.Tensor, mask: torch.Tensor, N: int):
     B = mask.shape[0]
     rank = torch.cumsum(mask.to(torch.int32), 0) - 1
     ok = mask & (count + rank < N)
-    n_added = torch.sum(ok.to(torch.int32))
+    n_added = torch.sum(ok, dtype=torch.int32)  # keeps `count` int32
     J = min(B, N)
     src = torch.argsort((~ok).to(torch.int32), stable=True)[:J]
     j = torch.arange(J, device=mask.device)
@@ -129,7 +129,7 @@ def _masked_append(count: torch.Tensor, mask: torch.Tensor, N: int):
         buf[dst] = torch.where(keep, v, buf[dst])
         return buf
 
-    return put, ok, n_added, torch.sum(mask.to(torch.int32)) - n_added
+    return put, ok, n_added, torch.sum(mask, dtype=torch.int32) - n_added
 
 
 def add_points(m: GaussianMap, points, colors, mask, draws, quats=None,

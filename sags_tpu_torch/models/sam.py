@@ -15,7 +15,9 @@ flax computes it:
     library attention;
   * the 2x2 stride-2 transposed convolutions with the kernel's spatial axes
     flipped against flax's `ConvTranspose` (done once, in
-    `interop.sam_params_from_numpy`);
+    `interop.sam_params_from_numpy`), computed as a matmul over channels and
+    a pixel shuffle (`ConvTranspose2x2`), so that their weight gradients are
+    plain GEMM reductions and training is bitwise repeatable on the card;
   * bilinear resizing with antialiasing (`jax.image.resize`'s default), which
     matters where it downsamples.
 
@@ -204,6 +206,25 @@ class TwoWayBlock(nn.Module):
         return t, img
 
 
+class ConvTranspose2x2(nn.Module):
+    """`nn.ConvTranspose2d(c_in, c_out, 2, stride=2)` on NHWC tensors, with
+    its parameter names and shapes (`weight` [c_in, c_out, 2, 2], `bias`).
+    Every input pixel owns its own 2x2 output block, so the layer is one
+    matmul over channels and a pixel shuffle; the backward is then GEMMs,
+    where cuDNN's transposed-convolution weight gradient picks algorithms
+    that differ from one pass to the next."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(c_in, c_out, 2, 2))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, x):  # [B,H,W,c_in] -> [B,2H,2W,c_out]
+        B, H, W, _ = x.shape
+        y = torch.einsum("bhwc,cokl->bhkwlo", x, self.weight)
+        return y.reshape(B, 2 * H, 2 * W, -1) + self.bias
+
+
 class MaskDecoder(nn.Module):
     """Two-way transformer decoder + upscaling + hypernetwork MLP."""
 
@@ -213,9 +234,9 @@ class MaskDecoder(nn.Module):
         self.n_tokens = 1 + num_multimask
         self.mask_tokens = nn.Parameter(torch.zeros(self.n_tokens, C))
         self.blocks = nn.ModuleList([TwoWayBlock(C) for _ in range(depth)])
-        self.up1 = nn.ConvTranspose2d(C, C // 4, 2, stride=2)
+        self.up1 = ConvTranspose2x2(C, C // 4)
         self.up_ln = _ln(C // 4)
-        self.up2 = nn.ConvTranspose2d(C // 4, C // 8, 2, stride=2)
+        self.up2 = ConvTranspose2x2(C // 4, C // 8)
         self.hyper1 = nn.Linear(C, C)
         self.hyper2 = nn.Linear(C, C // 8)
 
@@ -229,12 +250,10 @@ class MaskDecoder(nn.Module):
         img = (img + image_pe[None]).reshape(B, G * G, C)
         for blk in self.blocks:
             tokens, img = blk(tokens, img)
-        img = img.reshape(B, G, G, C).permute(0, 3, 1, 2)  # NCHW
-        up = self.up1(img).permute(0, 2, 3, 1)  # [B,2G,2G,C/4]
-        up = gelu(self.up_ln(up)).permute(0, 3, 1, 2)
-        up = gelu(self.up2(up))  # [B,C/8,4G,4G]
+        up = gelu(self.up_ln(self.up1(img.reshape(B, G, G, C))))  # [B,2G,2G,C/4]
+        up = gelu(self.up2(up))  # [B,4G,4G,C/8]
         hyper = self.hyper2(gelu(self.hyper1(tokens[:, :self.n_tokens])))  # [B,T,C/8]
-        masks = torch.einsum("btc,bchw->bthw", hyper, up)
+        masks = torch.einsum("btc,bhwc->bthw", hyper, up)
         return masks[:, 1:] if multimask_output else masks[:, :1]
 
 
@@ -311,7 +330,7 @@ def init_params(sam: "SAM", seed: int = 0) -> None:
             lecun(m.weight, m.in_features)
         elif isinstance(m, nn.Conv2d):
             lecun(m.weight, m.weight[0].numel())  # [out, in, kh, kw]
-        elif isinstance(m, nn.ConvTranspose2d):
+        elif isinstance(m, ConvTranspose2x2):
             lecun(m.weight, m.weight.shape[0] * m.weight.shape[2] * m.weight.shape[3])
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)

@@ -4,8 +4,11 @@ Each source is compiled by its own `nvcc` process into a shared library with
 a plain C interface (no PyTorch headers: seconds, not minutes), all of them
 started together, and loaded with `ctypes`. Libraries are named by a hash of
 their source, every header it includes from `csrc/` (`#include "..."`,
-followed through headers), and the flags, under `build/kernels/` at the
-repository root, so an edited source or header never loads a stale one. Nothing is built or loaded at
+followed through headers), and the flags, so an edited source or header
+never loads a stale one. They go under `build/kernels/` beside the package
+directory (the repository root), or where the environment variable
+`SAGS_TORCH_BUILD_DIR` says: set it when the package is installed, where
+that directory is site-packages. Nothing is built or loaded at
 import time: the first launch (or `build_all()`) does it. A kernel built
 with extra flags (`CudaKernel(..., flags=("-DNAME=1",), register=False)`)
 is a variant for measurements: its own library, outside the registry and
@@ -25,7 +28,8 @@ from typing import Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+BUILD_DIR = (os.environ.get("SAGS_TORCH_BUILD_DIR")
+             or os.path.join(os.path.dirname(_PKG), "build", "kernels"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 

@@ -175,6 +175,21 @@ def covariances_from_qs(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tens
     return quat_scale_to_cov(scales, quats)
 
 
+# cuSOLVER's batched symmetric eigensolver refuses batches of 3x3 matrices
+# from about 2^15 on (CUSOLVER_STATUS_INVALID_VALUE, with torch 2.11 and
+# CUDA 12.8 on an H100); each matrix is solved on its own, so chunks give
+# the same numbers
+_EIGH_CHUNK = 16384
+
+
+def _eigh_batched(A: torch.Tensor):
+    """`torch.linalg.eigh` of [..., 3, 3] in chunks of `_EIGH_CHUNK`."""
+    flat = A.reshape(-1, 3, 3)
+    parts = [torch.linalg.eigh(c) for c in flat.split(_EIGH_CHUNK)]
+    return (torch.cat([p[0] for p in parts]).reshape(A.shape[:-1]),
+            torch.cat([p[1] for p in parts]).reshape(A.shape))
+
+
 def robust_inv3(A: torch.Tensor) -> torch.Tensor:
     """Batched 3×3 adjugate inverse; an eigh pseudo-inverse only where the
     determinant vanishes (checked on the host: one sync)."""
@@ -193,7 +208,7 @@ def robust_inv3(A: torch.Tensor) -> torch.Tensor:
     inv = adj * r[..., None, None]
     if bool(ok.all()):
         return inv
-    evals, evecs = torch.linalg.eigh(A)
+    evals, evecs = _eigh_batched(A)
     inv_evals = torch.where(torch.abs(evals) > 1e-12, 1.0 / evals, torch.zeros_like(evals))
     pinv = torch.einsum("...ij,...j,...kj->...ik", evecs, inv_evals, evecs)
     return torch.where(ok[..., None, None], inv, pinv)

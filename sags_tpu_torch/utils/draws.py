@@ -16,6 +16,7 @@ class TorchDraws:
     """The default: a seeded `torch.Generator` on the device."""
 
     def __init__(self, seed: int, device):
+        self.seed = int(seed)
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))

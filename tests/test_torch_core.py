@@ -21,6 +21,11 @@ from sags_tpu_torch.core import config as tconf
 from sags_tpu_torch.core import sh as tsh
 from sags_tpu_torch.core import transforms as ttf
 
+# Torch sizes its intra-op thread pool to the cores; the suite runs several
+# test processes on one machine, whose pools then oversubscribe the cores
+# and spin against each other (and the JAX workers). One thread each.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -34,7 +39,9 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys; import sags_tpu_torch.slam.pipeline, sags_tpu_torch.interop; "
             "import sags_tpu_torch.ops.rasterize, sags_tpu_torch.slam.offline; "
             "import sags_tpu_torch.io.colmap_scene, sags_tpu_torch.io.ply, "
-            "sags_tpu_torch.io.pcd; "
+            "sags_tpu_torch.io.pcd; import sags_tpu_torch.cli.main, "
+            "sags_tpu_torch.slam.checkpoint, sags_tpu_torch.io.stream, "
+            "sags_tpu_torch.utils.traj; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'flax', 'optax', 'sags_tpu.'))]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -680,6 +680,83 @@ def test_scan_update_on_the_card_matches_the_cpu(device):
                                atol=1e-5 * float(c.state.P.abs().max()))
 
 
+def test_checkpoint_on_the_card_is_bitwise(device, tmp_path):
+    """A stepped state written on the card reads back bitwise (tensors, host
+    counters, the generator state); one `slam_step` from each gives bitwise
+    equal states; read on the CPU, the tensors are the same numbers."""
+    from chip_smoke import assert_states_bitwise
+    from sags_tpu_torch.core.config import MapConfig, SemanticsConfig, SLAMConfig
+    from sags_tpu_torch.slam import checkpoint
+    from sags_tpu_torch.slam import step as slam_step
+
+    cfg = SLAMConfig(raster=RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=128,
+                                            chunk=16),
+                     map=MapConfig(initial_capacity=512, initial_scale=0.06),
+                     semantics=SemanticsConfig(cls3d_sample=16, num_classes=20,
+                                               cls3d_interval=1))
+    means, _, _, _, colors, _ = (t.to(device) for t in _scene(4, n=300))
+    s = slam_step.init_state(cfg, seed=3, device=device)
+    s, _ = slam_step.add_frame_points(s, means, colors, torch.ones(300, dtype=torch.bool,
+                                                                    device=device), cfg)
+    cam = make_camera(torch.eye(3, device=device), torch.zeros(3, device=device), W, H,
+                      1.2, 0.9)
+    img = torch.rand((3, H, W), device=device, generator=torch.Generator(device).manual_seed(1))
+    objs = torch.zeros((H, W), dtype=torch.int32, device=device)
+    s, _ = slam_step.slam_step(s, cam, img, objs, cfg)
+    checkpoint.save_state(str(tmp_path), s, cfg)
+    back, cfg2 = checkpoint.load_state(str(tmp_path), device=device)
+    on_cpu, _ = checkpoint.load_state(str(tmp_path), device="cpu")
+    assert cfg2 == cfg
+
+    assert_states_bitwise(s, back)
+    assert_states_bitwise(s, on_cpu, generator=False)
+    s1, m1 = slam_step.slam_step(s, cam, img, objs, cfg)
+    s2, m2 = slam_step.slam_step(back, cam, img, objs, cfg)
+    assert float(m1.loss_obj_3d) > 0 and torch.equal(m1.loss, m2.loss)
+    assert_states_bitwise(s1, s2)
+
+
+def test_sam_gradients_on_the_card_are_bitwise(device):
+    """Two backward passes of one SAM training batch give bitwise equal
+    gradients in every parameter, the upscaling's included."""
+    from sags_tpu_torch.models import sam_train
+    from sags_tpu_torch.models.sam import SAM
+
+    sam = SAM(device=device, seed=0)
+    g = torch.Generator(device).manual_seed(0)
+    imgs = torch.rand((4, 256, 256, 3), device=device, generator=g)
+    boxes = torch.tensor([[20.0, 30.0, 120.0, 140.0]] * 4, device=device)
+    masks = torch.zeros((4, 64, 64), device=device)  # the decoder's resolution
+    masks[:, 8:35, 5:30] = 1.0
+    params = list(sam.parameters())
+
+    def grads():
+        with torch.enable_grad():
+            return torch.autograd.grad(sam_train._loss_fn(sam, imgs, boxes, masks), params)
+
+    g1, g2 = grads(), grads()
+    for (name, _), a, b in zip(sam.named_parameters(), g1, g2):
+        assert torch.equal(a, b), name
+    ups = [float(a.abs().max()) for (n, _), a in zip(sam.named_parameters(), g1)
+           if ".up1." in n or ".up2." in n]
+    assert len(ups) == 4 and min(ups) > 0
+
+
+def test_robust_inv3_on_the_card_matches_the_cpu(device):
+    """The pseudo-inverse fallback over a batch past cuSOLVER's batched
+    eigensolver limit (chunked): the card's result within 1e-4 relative of
+    the CPU's, the singular matrices included."""
+    from sags_tpu_torch.ops.gicp import robust_inv3
+
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn((65536, 3, 3), generator=g)
+    A = A @ A.transpose(-1, -2) + 0.1 * torch.eye(3)
+    A[::7] = 0.0
+    want = robust_inv3(A)
+    got = robust_inv3(A.to(device)).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 def test_header_edit_changes_the_library_hash(monkeypatch, tmp_path):
     """A library is named by its source and every `csrc/` header it
     includes: editing a header that only an included header includes still

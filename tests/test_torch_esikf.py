@@ -24,6 +24,8 @@ from test_esikf import make_room
 from test_torch_pipeline_modules import (POINTS, assert_runs_match, run_both,  # noqa: F401
                                          shared_jax_steps)
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 T = lambda a: torch.from_numpy(np.array(a))
 
 

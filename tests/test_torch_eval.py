@@ -29,6 +29,8 @@ from sags_tpu_torch.io.datasets import Frame as TorchFrame
 from sags_tpu_torch.slam.pipeline import Keyframe, SLAMPipeline, _HostMetrics
 from test_torch_step import jax_state_to_numpy
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 W, H = 64, 48
 
 

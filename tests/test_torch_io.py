@@ -33,6 +33,8 @@ from sags_tpu_torch.slam import offline as toff
 from sags_tpu_torch.utils.draws import ReplayDraws
 from test_colmap_scene import _write_colmap_text_model
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 T = lambda a: torch.from_numpy(np.array(a))
 W, H, F = 64, 48, 60.0
 

@@ -22,6 +22,8 @@ from sags_tpu_torch.core.camera import make_camera
 from sags_tpu_torch.ops import binning, composite, sort, windowed
 from sags_tpu_torch.ops import rasterize as trz
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 W, H = 64, 48
 TILES_X, TILES_Y = 4, 3
 

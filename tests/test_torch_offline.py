@@ -31,6 +31,8 @@ from sags_tpu_torch.utils import losses as tlosses
 from sags_tpu_torch.utils.draws import ReplayDraws
 from test_torch_step import ATOL
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 T = lambda a: torch.from_numpy(np.array(a))
 ITERS = 12
 
@@ -93,7 +95,9 @@ def frames():
 @pytest.fixture(scope="module")
 def trained(frames):
     """Both packages' `train_offline` over the same frames for ITERS steps,
-    JAX's draws replayed into the port."""
+    JAX's draws replayed into the port. JAX's training step is wrapped to
+    record each call's (state in, state out, loss): the run's states, which
+    `test_train_steps_from_jax_state_match` steps the port from."""
     jcfg, tcfg = _cfg(jconf, **SCHEDULE), _cfg(tconf, **SCHEDULE)
     n = sum(len(f.points) for f in frames)
     capacity = 4096
@@ -103,10 +107,26 @@ def trained(frames):
         if step >= 4 and step % 4 == 0:
             rng, normals = split_normals(rng, capacity)
             draws += normals
-    js, jl = joff.train_offline(frames, jcfg, ITERS, capacity=capacity, seed=0)
+    steps = []
+    make_train_step = joff.make_train_step
+
+    def recording(cfg, donate=False):
+        assert not donate  # a recorded state must stay valid
+        fn = make_train_step(cfg, donate=donate)
+
+        def step(state, cam, img):
+            out, loss = fn(state, cam, img)
+            steps.append((state, out, loss))
+            return out, loss
+        return step
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(joff, "make_train_step", recording)
+        js, jl = joff.train_offline(frames, jcfg, ITERS, capacity=capacity, seed=0)
     ts, tl = toff.train_offline(frames, tcfg, ITERS, capacity=capacity, seed=0,
                                 device="cpu", draws=ReplayDraws(draws, "cpu"))
-    return js, jl, ts, tl
+    assert len(steps) == ITERS
+    return js, jl, ts, tl, steps
 
 
 def test_knn_scale_init_matches_jax():
@@ -337,7 +357,7 @@ def test_cov3d_precomp_matches_jax(packed):
 
 def test_train_offline_losses_match_jax(trained):
     """12 iterations: every loss to 1e-4 relative, finite."""
-    _, jl, _, tl = trained
+    _, jl, _, tl, _ = trained
     assert len(tl) == len(jl) == ITERS
     assert np.isfinite(tl).all()
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
@@ -367,7 +387,7 @@ def test_train_offline_map_matches_jax(trained):
     """After densify at 4, 8 and 12 and the reset at 8: `active`, `count`,
     trackable and keyframe ids exact, the obj channels (no gradient) equal,
     the other parameters within RUN_BAR, the step count equal."""
-    js, _, ts, _ = trained
+    js, _, ts, _, _ = trained
     for f in ("active", "trackable", "keyframe_id", "count", "obj_dc"):
         np.testing.assert_array_equal(getattr(ts.map, f).numpy(),
                                       np.asarray(getattr(js.map, f)), err_msg=f)
@@ -378,7 +398,7 @@ def test_train_offline_map_matches_jax(trained):
 
 
 def test_offline_state_interop_round_trip(trained):
-    _, _, ts, _ = trained
+    _, _, ts, _, _ = trained
     tree = interop.offline_state_to_numpy(ts)
     back = interop.offline_state_from_numpy(tree, "cpu")
     assert back.step == ts.step and back.opt_state.count == ts.opt_state.count
@@ -388,28 +408,22 @@ def test_offline_state_interop_round_trip(trained):
         assert torch.equal(a, b)
 
 
-def test_train_steps_from_jax_state_match(frames):
-    """The 12 steps of the run, each from JAX's state after the last (its
-    densify events and reset applied in between): the loss to 1e-5
-    relative, `active` and `count` exact, each group within STEP_BAR."""
-    from sags_tpu.slam.pipeline import SLAMPipeline as JaxPipeline
+def test_train_steps_from_jax_state_match(frames, trained):
+    """The 12 steps of the run, each from JAX's state before it (the JAX
+    run's own, recorded by `trained`: its densify events and reset applied in
+    between): the loss to 1e-5 relative, `active` and `count` exact, each
+    group within STEP_BAR."""
     from sags_tpu_torch.slam.pipeline import camera_for
 
-    jcfg, tcfg = _cfg(jconf, **SCHEDULE), _cfg(tconf, **SCHEDULE)
-    pts = np.concatenate([f.points for f in frames])
-    cols = np.concatenate([f.colors for f in frames])
-    s = joff.init_from_points(pts, cols, jcfg, 4096, jax.random.key(0))
-    helper = JaxPipeline(jcfg)
-    jcams = [helper._camera_for(f, np.asarray(f.pose)) for f in frames]
+    _, _, _, _, steps = trained
+    tcfg = _cfg(tconf, **SCHEDULE)
     tcams = [camera_for(tcfg, f, np.asarray(f.pose), "cpu") for f in frames]
     imgs = [np.asarray(f.image, np.float32) for f in frames]
-    step_fn = joff.make_train_step(jcfg, donate=False)
-    order = np.random.default_rng(0)
+    order = np.random.default_rng(0)  # `_optimize`'s view order, seed 0
     worst = dict.fromkeys(RUN_BAR, 0.0)
-    for it in range(1, ITERS + 1):
+    for it, (s_in, s, jl) in enumerate(steps, start=1):
         i = order.integers(len(frames))
-        ts = interop.offline_state_from_numpy(jax_offline_to_numpy(s), "cpu")
-        s, jl = step_fn(s, jcams[i], jnp.asarray(imgs[i]))
+        ts = interop.offline_state_from_numpy(jax_offline_to_numpy(s_in), "cpu")
         ts, tl = toff.train_step(ts, tcams[i], T(imgs[i]), tcfg)
         assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl)), it
         for f in ("active", "count"):
@@ -417,8 +431,4 @@ def test_train_steps_from_jax_state_match(frames):
                                           np.asarray(getattr(s.map, f)), err_msg=f)
         for f, e in _max_err(ts.map, s.map).items():
             worst[f] = max(worst[f], e)
-        if it % 4 == 0:
-            s = joff.densify_event(s, jcfg)
-        if it % 8 == 0:
-            s = s._replace(map=jgm.reset_opacity(s.map))
     assert all(worst[f] <= STEP_BAR[f] for f in worst), worst

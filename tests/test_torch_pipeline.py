@@ -5,6 +5,7 @@ as numpy by the JAX package's dataset."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sags_tpu.core import config as jax_config
 from sags_tpu.io.datasets import SyntheticDataset as JaxSynthetic
@@ -15,6 +16,8 @@ from sags_tpu_torch.io.datasets import SyntheticDataset
 from sags_tpu_torch.slam.pipeline import SLAMPipeline
 from sags_tpu_torch.utils.draws import ReplayDraws
 from sags_tpu_torch.utils.traj import ate_rmse
+
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
 
 N_FRAMES, W, H = 6, 64, 48
 

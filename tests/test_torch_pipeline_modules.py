@@ -17,6 +17,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from sags_tpu.core import config as jax_config
 from sags_tpu.io.datasets import SyntheticDataset as JaxSynthetic
@@ -28,6 +29,8 @@ from sags_tpu_torch.io.datasets import Frame as TorchFrame
 from sags_tpu_torch.slam.pipeline import SLAMPipeline
 from sags_tpu_torch.utils.draws import ReplayDraws
 from test_torch_pipeline import _jax_draws
+
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
 
 N_FRAMES, W, H, POINTS = 6, 64, 48, 512
 

@@ -20,6 +20,8 @@ from sags_tpu_torch.core import config as tconf
 from sags_tpu_torch.core.camera import make_camera
 from sags_tpu_torch.ops import rasterize as trz
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 W, H = 64, 48
 FIELDS_F = ("color", "depth", "objects", "alpha", "final_T")
 FIELDS_I = ("radii", "n_binned", "overflow_rect", "overflow_tile", "overflow_window",

@@ -21,6 +21,8 @@ from sags_tpu_torch.models import sam as tsam
 from sags_tpu_torch.models import sam_train
 from sags_tpu_torch.semantics.domain_rand import domain_randomize
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 
 @pytest.fixture(scope="module")
 def jax_sam():

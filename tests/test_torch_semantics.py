@@ -37,6 +37,8 @@ from sags_tpu_torch.slam.pipeline import SLAMPipeline
 from sags_tpu_torch.utils.draws import ReplayDraws
 from test_torch_pipeline import N_FRAMES, W, H, _cfg, _jax_draws
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 # SAM in float32 against flax with the same weights: measured 1.9e-6 on the
 # encoder's features (magnitude 4.4) and 1.7e-5 on the decoder's logits
 # (magnitude 32); the sums run in another order
@@ -304,19 +306,20 @@ def test_sam_resizes_match_jax(shape):
 
 
 def test_conv_transpose_matches_flax():
-    """A random-weight 2x2 stride-2 `ConvTranspose` carried across: the
-    kernel's spatial axes flip."""
+    """A random-weight 2x2 stride-2 `ConvTranspose` carried across into the
+    port's `ConvTranspose2x2` (a matmul over channels and a pixel shuffle):
+    the kernel's spatial axes flip."""
     x = np.random.default_rng(0).normal(size=(2, 5, 6, 12)).astype(np.float32)
     mod = nn.ConvTranspose(8, (2, 2), strides=(2, 2))
     p = mod.init(jax.random.key(7), jnp.asarray(x))
     p = jax.tree.map(lambda a: a + 0.1 * jax.random.normal(jax.random.key(8), a.shape), p)
     want = np.asarray(mod.apply(p, jnp.asarray(x)))
-    conv = torch.nn.ConvTranspose2d(12, 8, 2, stride=2)
     sd = interop._conv_transpose(jax.tree.map(np.array, p["params"]), "c")
-    conv.load_state_dict({"weight": torch.as_tensor(sd["c.weight"]),
-                          "bias": torch.as_tensor(sd["c.bias"])})
+    sd = {"weight": torch.as_tensor(sd["c.weight"]), "bias": torch.as_tensor(sd["c.bias"])}
+    up = tsam.ConvTranspose2x2(12, 8)
+    up.load_state_dict(sd)
     with torch.no_grad():
-        got = conv(torch.as_tensor(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+        got = up(torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 

@@ -20,6 +20,8 @@ from sags_tpu_torch.ops import gicp as t_gicp
 from sags_tpu_torch.slam import step as t_step
 from sags_tpu_torch.utils.draws import ReplayDraws
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 W, H = 64, 48
 
 

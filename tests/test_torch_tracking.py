@@ -30,6 +30,8 @@ from sags_tpu_torch.slam import fused as t_fused
 from tests.test_gicp import CFG, clouds, errors  # noqa: F401 (fixture reuse)
 from tests.test_torch_step import H, W, _scan, configs, jax_state_to_numpy
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 POSE_ATOL = 1e-5
 # VGICP over several neighbour offsets (DIRECT7, DIRECT_RADIUS): each point
 # also meets the voxels beside its own, whose residuals are large and cancel

@@ -23,6 +23,8 @@ from sags_tpu_torch.ops import rasterize as trz
 from sags_tpu_torch.ops import sort as tsort
 from sags_tpu_torch.ops import windowed as win
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 W, H = 96, 64
 TILES_X, TILES_Y = 6, 4
 FIELDS_F = ("color", "depth", "objects", "alpha", "final_T")

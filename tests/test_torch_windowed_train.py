@@ -7,6 +7,7 @@ JAX side runs its Pallas kernels in interpret mode; the port runs its
 kernels' plain versions (CPU tensors)."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,8 @@ from test_torch_step import (ATOL, assert_map_close, configs, jax_state_to_numpy
 from test_torch_windowed import (TILES_X, TILES_Y, W, H, _cams, _configs, _jax_prepare,
                                  _np, _pre_both, _scene)
 
+torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
+
 
 def _blocked(G_s, window_blocks):
     """The JAX package's blocked row store [NB, 32, 128] of `G_s`
@@ -42,7 +45,14 @@ def _blocked(G_s, window_blocks):
 def _bwd_case(case):
     """The JAX package's own prepared inputs of one windowed case with seeded
     cotangents: (the port's arguments as tensors, keywords, the Pallas
-    backward's dGt in interpret mode, counts)."""
+    backward's dGt in interpret mode, counts). The JAX side runs once per
+    case (`_bwd_case_np`); each caller gets tensors of its own."""
+    arrays, ints, kw, want, counts = _bwd_case_np(case)
+    return (*(torch.tensor(a) for a in arrays), *ints), dict(kw), want, counts
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_case_np(case):
     jcfg, tcfg, jpre, _, objs = _pre_both(case)
     G_s, _, tl, counts, bases, dests, nblks, *_ = _jax_prepare(
         jpre, jnp.asarray(objs), tiles_x=TILES_X, tiles_y=TILES_Y, cfg=jcfg)
@@ -59,10 +69,9 @@ def _bwd_case(case):
     want = np.asarray(jax_windowed_bwd(gb, tl, counts, bases, dests, nblks,
                                        jnp.asarray(d_acc), jnp.asarray(d_T), T, 16, TILES_X,
                                        w_blocks=jcfg.window_blocks, interpret=True, **kw))
-    t = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
-    args = (t(G_s), t(tl), t(counts), t(bases), t(dests), t(nblks), t(d_acc), t(d_T), t(T),
-            16, TILES_X)
-    return args, kw, want, np.asarray(counts)
+    arrays = tuple(np.asarray(x) for x in (G_s, tl, counts, bases, dests, nblks, d_acc,
+                                           d_T, T))
+    return arrays, (16, TILES_X), kw, want, np.asarray(counts)
 
 
 def _row_rel(got, want):
