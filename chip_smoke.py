@@ -160,10 +160,31 @@ Phases, each failing the run (non-zero exit, no result line):
      PNG decodes to the rendered image), eval, run-gicp in both modes with
      --out-poses, align --method all on the structured pair written as
      .npy (the GICP family within 5 cm / 1°), and serve in a thread feeding
-     run-slam --dataset socket for 4 frames.
+     run-slam --dataset socket for 4 frames;
+ 12. the other sources through the CLI, at the CLI cell's stream: (a)
+     its 24 frames as a ROS1 bag (`/rgb_img`, `/cloud_registered`,
+     `/aft_mapped_to_init`, `/imu`), run-slam --dataset rosbag with 20
+     post-training steps (launches exact: each classic kernel one a training
+     iteration, nothing else; ATE ≤ 1.05 × the synthetic run's; rows 1-3
+     held on its map at its training config, rows 4-5 at its eval config),
+     8 frames of it under esikf (ATE reported), the bag's decode cost
+     alone; (b) 8 frames as TUM and Replica layouts, read back exactly
+     (images, depths to their quantization, poses) and run through
+     run-slam (launches exact; composite_windowed bitwise on the first eval
+     frame); (c) the scans as KITTI velodyne files through a non-identity
+     Tr, run-gicp --dataset kitti in both modes within 1e-4 / 5e-4 m of the
+     synthetic run-gicp's ATE, and pose-less (ATE null); (d) the bag run's
+     saved map served by the viewer to 4 SIBR requests at 640x512, each
+     reply bitwise the uint8 `render_map` image, one fill_table and one
+     composite_windowed launch a request; (e) the native host library built
+     and held against its fallbacks on the card (voxel centroids within
+     1e-5, kNN distances within 1e-5 plus the fallback's float32 rounding
+     and indices away from ties, the PointCloud2 decode bitwise); (f) a `PhaseTimer` report of (a)-(e) and a
+     `trace` of a one-frame bag.
 Launch counts are zeroed just before each main path (each loop, each eval
 mode, each offline run, the CLI's run-slam and train) and read just after;
-`cli_launches` on the kernels line is the CLI run-slam's. The line before
+`cli_launches` on the kernels line is the CLI run-slam's, `sources_launches`
+the sources phase's runs' (the bag, TUM, Replica, the viewer). The line before
 the last holds each kernel's launches on its path (rows 1-3 also in the
 offline run, `offline_launches`), its time, its plain version's time, the
 library call's time and its bound. A kernel's `ms` and `library_ms` are device time
@@ -1383,12 +1404,22 @@ def eval_frame_check(m, cam, rc, sh_degree, mode) -> dict:
     """One eval render's windowed compositor (`mode`: "windowed_host" or
     "windowed_kernel") bitwise against its plain version on the inputs the
     render prepares from map `m` for `cam` at raster config `rc`, its strip
-    cull dropping no gated strip. Returns its error, time and cull share."""
+    cull dropping no gated strip; on the host-table path also the render's
+    own `fill_table` call exactly against its plain version on the inputs it
+    was given. Returns its error, time and cull share."""
     import torch
 
     from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.ops import binning
     from sags_tpu_torch.ops import rasterize as rz
     from sags_tpu_torch.ops import windowed as win
+
+    tables = []
+
+    def kept_fill_table(*args):
+        out = binning.fill_table(*args)
+        tables.append((args, out))
+        return out
 
     tiles_x, tiles_y = -(-cam.width // 16), -(-cam.height // 16)
     kw = dict(alpha_min=rc.alpha_min, t_min=rc.transmittance_min,
@@ -1399,8 +1430,11 @@ def eval_frame_check(m, cam, rc, sh_degree, mode) -> dict:
                             gm.get_rotation(m), cam, rc, shs=gm.get_shs(m),
                             sh_degree=sh_degree, active_mask=m.active)
         if mode == "windowed_host":
-            G_s, _, tl, counts, b, d, n, *_ = rz._prepare_windowed(
-                pre, m.obj_dc, tiles_x, tiles_y, rc)
+            with swapped(rz, "fill_table", kept_fill_table):
+                G_s, _, tl, counts, b, d, n, *_ = rz._prepare_windowed(
+                    pre, m.obj_dc, tiles_x, tiles_y, rc)
+            (t_args, t_out), = tables
+            fill_exact = torch.equal(t_out, binning.fill_table_plain(*t_args))
             got = win.composite_windowed(G_s, tl, counts, b, d, n, 16, tiles_x, **kw)
             want = win.composite_windowed_plain(G_s, tl, counts, b, d, n, 16, tiles_x, **kw)
             rows = win.window_rows(tl, b, d, n, kw["n_span"])
@@ -1422,13 +1456,15 @@ def eval_frame_check(m, cam, rc, sh_degree, mode) -> dict:
             cnt = torch.clamp(nv, max=rc.tile_capacity)
             ms = cuda_ms(lambda: win.composite_windowed_sorted(G_s, b, d, n, ss, se, 16,
                                                                tiles_x, **skw), 5)
+            fill_exact = None  # the in-kernel sort builds no table
         cull = cull_share(G_s, rows, cnt, tiles_x, rc.alpha_min)
     torch.cuda.synchronize()
     err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
         f"{mode} eval frame: {err} from the plain version"
+    assert fill_exact is not False, f"{mode} eval frame: fill_table differs from its plain version"
     assert cull["gated_strips_dropped"] == 0, f"{mode} eval frame's cull: {cull}"
-    return {"max_abs_err": err, "ms": ms, "strip_cull": cull,
+    return {"max_abs_err": err, "fill_table_exact": fill_exact, "ms": ms, "strip_cull": cull,
             "window_blocks": rc.window_blocks, "tile_capacity": rc.tile_capacity,
             "max_tiles_per_gaussian": rc.max_tiles_per_gaussian}
 
@@ -2885,6 +2921,537 @@ def cli_phase(device, n_frames=24, post_train=20, cell=CLI_CELL, capacity=2 ** 1
     return res, launches
 
 
+# --- the sources phase: the dataset readers, bag replay, the viewer, the
+# native host library and the profiler, through the CLI
+
+def quantized(f, scale: float):
+    """A frame's image as 8-bit RGB [H, W, 3] and its depth as uint16 at
+    `scale` a metre, 0 (no depth) where it does not fit."""
+    import numpy as np
+
+    rgb = np.clip(np.round(f.image.transpose(1, 2, 0) * 255), 0, 255).astype(np.uint8)
+    d = np.round(f.depth.astype(np.float64) * scale)
+    return rgb, np.where((d > 0) & (d <= 65535), d, 0).astype(np.uint16)
+
+
+def write_tum(root: str, frames, t0: float = 1000.0) -> None:
+    """`frames` in the TUM RGB-D layout: rgb/ and depth/ PNGs (depth at 5000
+    a metre), rgb.txt, depth.txt 3 ms and groundtruth.txt 2 ms off the rgb
+    stamps, poses as position and xyzw quaternion."""
+    import os
+
+    import numpy as np
+
+    from sags_tpu_torch.cli.main import write_png
+    from sags_tpu_torch.utils.traj import _rotmat_to_quat_xyzw
+
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    rows = {"rgb.txt": [], "depth.txt": [], "groundtruth.txt": []}
+    for f in frames:
+        t = t0 + f.timestamp
+        rgb, d16 = quantized(f, 5000.0)
+        write_png(os.path.join(root, "rgb", f"{t:.6f}.png"), rgb)
+        write_png(os.path.join(root, "depth", f"{t + 0.003:.6f}.png"), d16)
+        rows["rgb.txt"].append(f"{t:.6f} rgb/{t:.6f}.png")
+        rows["depth.txt"].append(f"{t + 0.003:.6f} depth/{t + 0.003:.6f}.png")
+        q = _rotmat_to_quat_xyzw(f.pose[:3, :3].astype(np.float64))
+        rows["groundtruth.txt"].append(
+            f"{t - 0.002:.6f} " + " ".join(repr(float(v)) for v in (*f.pose[:3, 3], *q)))
+    for name, lines in rows.items():
+        with open(os.path.join(root, name), "w") as fh:
+            fh.write(f"# {name}\n" + "\n".join(lines) + "\n")
+
+
+def write_replica(root: str, frames) -> None:
+    """`frames` in the Replica layout: results/frame%06d.png,
+    results/depth%06d.png at 6553.5 a metre, traj.txt (16 floats a line)."""
+    import os
+
+    import numpy as np
+
+    from sags_tpu_torch.cli.main import write_png
+
+    os.makedirs(os.path.join(root, "results"), exist_ok=True)
+    for i, f in enumerate(frames):
+        rgb, d16 = quantized(f, 6553.5)
+        write_png(os.path.join(root, "results", f"frame{i:06d}.png"), rgb)
+        write_png(os.path.join(root, "results", f"depth{i:06d}.png"), d16)
+    np.savetxt(os.path.join(root, "traj.txt"),
+               np.stack([f.pose.reshape(-1) for f in frames]), fmt="%.9g")
+
+
+# a velodyne→cam0 extrinsic of KITTI's shape: an axis remap and a lever arm
+KITTI_TR = ((0.0, -1.0, 0.0, -0.004), (0.0, 0.0, -1.0, -0.076), (1.0, 0.0, 0.0, -0.272))
+
+
+def write_kitti(root: str, frames) -> dict:
+    """`frames`' scans in the KITTI odometry layout: velodyne/%06d.bin (x, y,
+    z, intensity), poses.txt in the cam0 frame through `KITTI_TR`
+    (T_cam0 = Tr · T · Tr⁻¹, so the reader's Tr⁻¹ · T_cam0 · Tr gives T
+    back), calib.txt with the `Tr:` line, times.txt. Returns the paths."""
+    import os
+
+    import numpy as np
+
+    velo = os.path.join(root, "velodyne")
+    os.makedirs(velo, exist_ok=True)
+    Tr = np.eye(4)
+    Tr[:3, :4] = np.asarray(KITTI_TR)
+    for i, f in enumerate(frames):
+        rec = np.concatenate([f.scan, np.full((len(f.scan), 1), 0.5, np.float32)], 1)
+        rec.astype(np.float32).tofile(os.path.join(velo, f"{i:06d}.bin"))
+    cam = Tr[None] @ np.stack([f.pose.astype(np.float64) for f in frames]) @ np.linalg.inv(Tr)
+    paths = {k: os.path.join(root, k) for k in ("poses.txt", "calib.txt", "times.txt")}
+    np.savetxt(paths["poses.txt"], cam[:, :3, :4].reshape(len(frames), 12), fmt="%.17g")
+    with open(paths["calib.txt"], "w") as fh:
+        fh.write("P0: " + " ".join(["0"] * 12) + "\n")
+        fh.write("Tr: " + " ".join(f"{v:.17g}" for v in Tr[:3, :4].reshape(-1)) + "\n")
+    np.savetxt(paths["times.txt"], [f.timestamp for f in frames], fmt="%.9f")
+    return dict(paths, velodyne=velo)
+
+
+def write_rosbag(path: str, frames, imu: bool = True, t0: float = 100.0) -> int:
+    """`frames` as a ROS1 bag of the node's topics (`/rgb_img`,
+    `/cloud_registered`, `/aft_mapped_to_init`, `/imu`), written with the
+    port's encoders: the cloud's and the odometry's stamps 10 and 20 ms after
+    the image's (within the synchronizer's slop); before each frame its IMU
+    samples, stamped at the ends of their intervals, the bag's first one
+    led by a sample at its interval's start (the reader gives a bag's first
+    sample dt 0). Returns the file's size in bytes."""
+    import os
+
+    import numpy as np
+
+    from sags_tpu_torch.io import rosbag as rb
+
+    msgs, led = [], False
+    for f in frames:
+        t = t0 + f.timestamp
+        if imu and f.imu is not None:
+            dts = f.imu[:, 6].astype(np.float64)
+            ends = t - (dts[::-1].cumsum()[::-1] - dts)
+            if not led:
+                start = float(ends[0] - dts[0])
+                msgs.append(("/imu", "sensor_msgs/Imu", start,
+                             rb.encode_imu(start, f.imu[0, :3], f.imu[0, 3:6])))
+                led = True
+            for te, row in zip(ends, f.imu):
+                msgs.append(("/imu", "sensor_msgs/Imu", float(te),
+                             rb.encode_imu(float(te), row[:3], row[3:6])))
+        msgs += [("/rgb_img", "sensor_msgs/Image", t, rb.encode_image(t, f.image)),
+                 ("/cloud_registered", "sensor_msgs/PointCloud2", t + 0.01,
+                  rb.encode_pointcloud2(t + 0.01, f.points, f.colors)),
+                 ("/aft_mapped_to_init", "nav_msgs/Odometry", t + 0.02,
+                  rb.encode_odometry(t + 0.02, f.pose))]
+    rb.write_bag(path, msgs)
+    return os.path.getsize(path)
+
+
+def sibr_request(cam) -> dict:
+    """A SIBR viewer request for the port `Camera` `cam`: its matrices
+    transposed (the wire's convention) with the y/z columns flipped as the
+    viewer sends them."""
+    V = cam.world_view.cpu().numpy().T.copy()
+    PV = cam.full_proj.cpu().numpy().T.copy()
+    V[:, 1:3] *= -1
+    PV[:, 1] *= -1
+    return {"resolution_x": cam.width, "resolution_y": cam.height, "train": False,
+            "fov_y": cam.fovy, "fov_x": cam.fovx, "z_near": cam.znear, "z_far": cam.zfar,
+            "shs_python": False, "rot_scale_python": False, "keep_alive": True,
+            "scaling_modifier": 1.0, "view_matrix": V.reshape(-1).tolist(),
+            "view_projection_matrix": PV.reshape(-1).tolist()}
+
+
+def unflip(msg):
+    """A request's view and view-projection as `NetworkGUI.receive` hands
+    them to `MiniCam`."""
+    import numpy as np
+
+    V = np.asarray(msg["view_matrix"], np.float32).reshape(4, 4)
+    PV = np.asarray(msg["view_projection_matrix"], np.float32).reshape(4, 4)
+    V[:, 1:3] *= -1
+    PV[:, 1] *= -1
+    return V, PV
+
+
+def viewer_client(port: int, requests, out: dict) -> None:
+    """A SIBR viewer: each request sent, its RGB reply and verify string
+    read, the milliseconds from send to reply kept."""
+    import socket
+
+    out["replies"], out["ms"] = [], []
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as c:
+        def exact(n):
+            buf = b""
+            while len(buf) < n:
+                chunk = c.recv(n - len(buf))
+                if not chunk:
+                    raise ConnectionError("the viewer server closed")
+                buf += chunk
+            return buf
+
+        for msg in requests:
+            payload = json.dumps(msg).encode()
+            t0 = time.perf_counter()
+            c.sendall(len(payload).to_bytes(4, "little") + payload)
+            img = exact(msg["resolution_x"] * msg["resolution_y"] * 3)
+            verify = exact(int.from_bytes(exact(4), "little")).decode()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["replies"].append((img, verify))
+
+
+def knn_bar(queries, d2):
+    """The bar on a kNN fallback's squared distances [M, k] to `queries`'
+    neighbours: 1e-5 plus the float32 rounding of |q|^2 + |p|^2 - 2 q.p
+    (8 ulps of |q|^2 + |p|^2, with |p| <= |q| + sqrt(d2))."""
+    import numpy as np
+
+    qn = np.linalg.norm(queries.astype(np.float64), axis=1)[:, None]
+    pn = qn + np.sqrt(np.maximum(d2.astype(np.float64), 0.0))
+    return 1e-5 + 8 * float(np.finfo(np.float32).eps) * (qn ** 2 + pn ** 2)
+
+
+def launch_counts() -> dict:
+    from sags_tpu_torch.ops import _build
+
+    return {k.symbol: k.launches for k in _build.kernels()}
+
+
+PATH_KERNELS = SLAM_KERNELS + ("sags_composite_windowed",)
+
+
+def sources_phase(device, cli_res, n_frames=24, post_train=20, cell=CLI_CELL,
+                  capacity=2 ** 18, list_frames=8, esikf_frames=8, viewer_requests=4,
+                  knn_k=10):
+    """The port's other sources through its CLI in this process, at the CLI
+    cell's stream (`cli_res` is the cli phase's result, whose synthetic runs
+    are the references): (a) run-slam over a ROS1 bag of the stream's
+    frames (launches exact, ATE against the synthetic run's, rows 1-3 held
+    on its map at its training config, rows 4-5 at its eval config), 8
+    frames of it under esikf, and the bag's decode cost alone; (b) TUM and
+    Replica layouts of 8 frames read back exactly, run-slam on each
+    (launches exact, rows 1-3 held on its map at its training config, rows
+    1 and 4 exact on the first eval frame); (c) KITTI scans, run-gicp in
+    both modes (ATE against the synthetic scans' within 1e-4 / 5e-4 m) and
+    pose-less; (d) the viewer on the bag run's saved map, rows 1 and 4 exact
+    at its config, replies bitwise `render_map`; (e) the native host library against its
+    fallbacks on the card; (f) one `PhaseTimer` over (a)-(e), one `trace`
+    of a one-frame bag. Returns (result, launches per source)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import tracemalloc
+
+    import numpy as np
+    import torch
+
+    from sags_tpu_torch.cli import main as cli
+    from sags_tpu_torch.core.config import SLAMConfig
+    from sags_tpu_torch.core.transforms import quat_to_rotmat
+    from sags_tpu_torch.io import datasets as D
+    from sags_tpu_torch.io import native
+    from sags_tpu_torch.io.ply import load_map_ply
+    from sags_tpu_torch.io.rosbag import RosbagDataset
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.slam import pipeline
+    from sags_tpu_torch.slam.pipeline import camera_for
+    from sags_tpu_torch.slam.step import render_map
+    from sags_tpu_torch.utils.profiling import PhaseTimer, trace
+    from sags_tpu_torch.viz.network_gui import MiniCam, NetworkGUI
+
+    work = tempfile.mkdtemp(prefix="sags_sources_")
+    path = {k: os.path.join(work, k) for k in ("seq.bag", "esikf.bag", "one.bag", "map.ply",
+                                               "tum", "replica", "kitti", "trace")}
+    flags = dict(zip(cell[::2], cell[1::2]))
+    frames = list(D.SyntheticDataset(
+        n_frames=n_frames, width=int(flags["--width"]), height=int(flags["--height"]),
+        n_world=int(flags["--world-points"]), pts_per_frame=int(flags["--scan-points"]),
+        step=float(flags["--step"]), clutter=0.35, imu_substeps=IMU_SUBSTEPS, device=device))
+    run_flags = ["--capacity", str(capacity), "--point-budget", "4096", "--tracking", "gicp"]
+    res = {"phase": "sources"}
+    launches = {}
+    timer = PhaseTimer()
+    seen = {}
+
+    def keep(name):
+        """`SLAMPipeline.<name>` recording its pipeline in `seen`."""
+        real = getattr(pipeline.SLAMPipeline, name)
+
+        def wrapper(self, *args, **kw):
+            seen["pipe"] = self
+            return real(self, *args, **kw)
+        return swapped(pipeline.SLAMPipeline, name, wrapper)
+
+    # (a) the bag: written, decoded alone, replayed through run-slam
+    with timer.phase("a_rosbag"):
+        nbytes = write_rosbag(path["seq.bag"], frames)
+        # the decode timed alone, then its peak host memory in a pass of its
+        # own (tracemalloc hooks every allocation)
+        decode = PhaseTimer()
+        t0 = time.perf_counter()
+        for _ in RosbagDataset(path["seq.bag"], imu_topic="/imu"):
+            decode.record("frame", time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        tracemalloc.start()
+        for _ in RosbagDataset(path["seq.bag"], imu_topic="/imu"):
+            pass
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with keep("run"):
+            run, (line,) = cli_main(["run-slam", "--dataset", "rosbag", "--path", path["seq.bag"],
+                                     "--imu-topic", "/imu", *run_flags, "--post-train",
+                                     str(post_train), "--save", path["map.ply"]], device)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches["rosbag"] = launch_counts()
+        pipe = seen.pop("pipe")
+        iters = line["train_iters"]
+        # a streamed source: no ground-truth render, no evaluation
+        want = {"sags_composite_fused_bwd": iters, "sags_composite_fused": iters,
+                "sags_fill_table": iters, "sags_composite_windowed": 0}
+        got = {s: launches["rosbag"][s] for s in want}
+        ate_syn = cli_res["run_slam"]["ate_rmse"]
+        res["rosbag"] = dict(line, wall_seconds=wall_s, ms_per_frame=1e3 / line["fps"],
+                             ms_per_frame_steady=1e3 / line["fps_steady"], bag_bytes=nbytes,
+                             decode_host_ms_per_frame=decode.summary()["frame"]["mean_ms"],
+                             decode_peak_host_mb=peak / 2 ** 20, launches=got,
+                             synthetic_ate_rmse=ate_syn)
+        assert set(line) == RUN_SLAM_KEYS, sorted(set(line) ^ RUN_SLAM_KEYS)
+        assert line["frames"] == n_frames and line["mean_psnr"] is None, line
+        assert iters >= n_frames + post_train - 1, line
+        assert got == want, (got, want)
+        assert line["ate_rmse"] is not None and line["ate_rmse"] <= 1.05 * ate_syn, \
+            (line["ate_rmse"], ate_syn)
+        fwd, bwd = loop_fused_check(device, run.state.map, pipe.cfg, pipe.keyframes[-1].camera)
+        assert_loop_fused(fwd, bwd, "the rosbag run-slam")
+        ev = type("EvalPipe", (), {"state": run.state, "cfg": pipe.eval_config(True)})
+        win = loop_bwd_check(device, ev, pipe.keyframes[-1].camera)
+        res["rosbag"].update(composite_fused_at_run=fwd, composite_fused_bwd_at_run=bwd,
+                             windowed_at_eval_config=win)
+        assert win["rel_err"] <= 2e-4 and win["composite_windowed"]["bitwise"], win
+        assert win["composite_windowed"]["strip_cull"]["gated_strips_dropped"] == 0, win
+        del pipe, ev
+        write_rosbag(path["esikf.bag"], frames[:esikf_frames])
+        _, (line_e,) = cli_main(["run-slam", "--dataset", "rosbag", "--path", path["esikf.bag"],
+                                 "--imu-topic", "/imu", "--capacity", str(capacity),
+                                 "--point-budget", "4096", "--post-train", "0",
+                                 "--tracking", "esikf"], device)
+        res["rosbag"]["esikf"] = {
+            "frames": line_e["frames"], "ate_rmse": line_e["ate_rmse"],
+            "synthetic_ate_rmse": cli_res["run_slam_modes"]["esikf"]["ate_rmse"]}
+        assert line_e["frames"] == esikf_frames and line_e["ate_rmse"] is not None, line_e
+        emit({"phase": "sources", "rosbag": res["rosbag"]})
+
+    # (b) TUM and Replica: written, read back exactly, run through run-slam
+    with timer.phase("b_tum_replica"):
+        sub = frames[:list_frames]
+        write_tum(path["tum"], sub)
+        write_replica(path["replica"], sub)
+        n_eval = len(range(0, list_frames, max(1, list_frames // 5)))
+        for name, reader, scale in (("tum", D.TUMDataset, 5000.0),
+                                    ("replica", D.ReplicaDataset, 6553.5)):
+            t0 = time.perf_counter()
+            back = list(reader(path[name]))
+            read_ms = (time.perf_counter() - t0) * 1e3 / len(back)
+            assert len(back) == list_frames, (name, len(back))
+            for f, b in zip(sub, back):
+                rgb, d16 = quantized(f, scale)
+                assert np.array_equal(b.image, rgb.transpose(2, 0, 1).astype(np.float32) / 255.0)
+                assert np.array_equal(b.depth, d16.astype(np.float32) / np.float32(scale))
+                if name == "replica":
+                    assert np.array_equal(b.pose, f.pose), name
+                else:
+                    assert np.abs(b.pose - f.pose).max() <= 1e-6, (b.pose, f.pose)
+            if name == "tum":  # the reader's rotation is the port's of the written quaternion
+                with open(os.path.join(path["tum"], "groundtruth.txt")) as fh:
+                    gt = [list(map(float, ln.split()[1:])) for ln in fh if not ln.startswith("#")]
+                for g, b in zip(gt, back):
+                    R = quat_to_rotmat(torch.tensor(g[3:7], dtype=torch.float32)).numpy()
+                    assert np.array_equal(b.pose[:3, :3], R)
+            _build.reset_launch_counts()
+            with keep("evaluate"):
+                run_l, (line_l,) = cli_main(["run-slam", "--dataset", name, "--path", path[name],
+                                             *run_flags, "--post-train", "0"], device)
+            torch.cuda.synchronize()
+            launches[name] = launch_counts()
+            pipe = seen.pop("pipe")
+            it = line_l["train_iters"]
+            # images read from files: no ground-truth render; each eval
+            # render (windowed host table) launches fill_table and
+            # composite_windowed once
+            want = {"sags_composite_fused_bwd": it, "sags_composite_fused": it,
+                    "sags_fill_table": it + n_eval, "sags_composite_windowed": n_eval}
+            got = {s: launches[name][s] for s in want}
+            # rows 1-3 on its final map at its training config, from its
+            # last keyframe; rows 1 and 4 on its first eval frame
+            fwd, bwd = loop_fused_check(device, run_l.state.map, pipe.cfg,
+                                        pipe.keyframes[-1].camera)
+            assert_loop_fused(fwd, bwd, f"the {name} run-slam")
+            check = eval_frame_check(run_l.state.map,
+                                     camera_for(pipe.cfg, back[0], run_l.poses_est[0], device),
+                                     pipe.eval_config(True).raster, pipe.cfg.map.sh_degree,
+                                     "windowed_host")
+            del pipe
+            res[name] = dict(line_l, launches=got, read_host_ms_per_frame=read_ms,
+                             composite_fused_at_run=fwd, composite_fused_bwd_at_run=bwd,
+                             composite_windowed_at_eval=check)
+            assert set(line_l) == RUN_SLAM_KEYS and line_l["frames"] == list_frames, line_l
+            assert line_l["ate_rmse"] is not None and math.isfinite(line_l["ate_rmse"]), line_l
+            assert math.isfinite(line_l["mean_psnr"]), line_l
+            assert got == want, (name, got, want)
+        emit({"phase": "sources", "tum": res["tum"], "replica": res["replica"]})
+
+    # (c) KITTI: the stream's scans, run-gicp against the synthetic run's
+    with timer.phase("c_kitti"):
+        kp = write_kitti(path["kitti"], frames)
+        res["kitti"] = {}
+        for mode, atol in (("scan", 1e-4), ("map", 5e-4)):
+            _, (line_k,) = cli_main(["run-gicp", "--dataset", "kitti", "--path", kp["velodyne"],
+                                     "--poses", kp["poses.txt"], "--calib", kp["calib.txt"],
+                                     "--times", kp["times.txt"], "--mode", mode,
+                                     "--keyframe-every", "4"], device)
+            ref = cli_res["run_gicp"][mode]["ate_rmse"]
+            res["kitti"][mode] = dict(line_k, synthetic_ate_rmse=ref)
+            assert line_k["frames"] == n_frames, line_k
+            assert abs(line_k["ate_rmse"] - ref) <= atol, (mode, line_k["ate_rmse"], ref)
+        _, (line_p,) = cli_main(["run-gicp", "--dataset", "kitti", "--path", kp["velodyne"],
+                                 "--times", kp["times.txt"]], device)
+        res["kitti"]["pose_less"] = line_p
+        assert line_p["ate_rmse"] is None and line_p["frames"] == n_frames, line_p
+        emit({"phase": "sources", "kitti": res["kitti"]})
+
+    # (d) the viewer: the bag run's map served to a SIBR client
+    with timer.phase("d_viewer"):
+        cfg = SLAMConfig()
+        m = load_map_ply(path["map.ply"], device=device)
+        gui = NetworkGUI(port=0, device=device)
+        picks = np.linspace(0, n_frames - 1, viewer_requests).astype(int)
+        msgs = [sibr_request(camera_for(cfg, frames[i], frames[i].pose, device)) for i in picks]
+        # rows 1 and 4 against their plain versions at the viewer's own
+        # config (SLAMConfig().raster) on its first request's view
+        view_check = eval_frame_check(
+            m, MiniCam(msgs[0]["resolution_x"], msgs[0]["resolution_y"], msgs[0]["fov_y"],
+                       msgs[0]["fov_x"], msgs[0]["z_near"], msgs[0]["z_far"], *unflip(msgs[0]),
+                       device=device).camera,
+            cfg.raster, cfg.map.sh_degree, "windowed_host")
+        client, server = {}, {}
+        # the server loop in a thread, the client here: a client that fails
+        # raises instead of leaving the loop waiting for requests
+        thread = threading.Thread(target=lambda: server.update(
+            n=cli.serve_viewer(gui, m, cfg, requests=viewer_requests)), daemon=True)
+        _build.reset_launch_counts()
+        thread.start()
+        try:
+            viewer_client(gui.listener.getsockname()[1], msgs, client)
+            thread.join(60.0)
+        finally:
+            gui.close()
+        assert not thread.is_alive(), "the viewer loop did not return"
+        served = server["n"]
+        launches["viewer"] = launch_counts()
+        same = []
+        for (img, verify), msg in zip(client["replies"], msgs):
+            cam = MiniCam(msg["resolution_x"], msg["resolution_y"], msg["fov_y"], msg["fov_x"],
+                          msg["z_near"], msg["z_far"], *unflip(msg), device=device).camera
+            with torch.no_grad():
+                color = render_map(m, cam, cfg).color.cpu().numpy()
+            want_img = np.clip(color * 255, 0, 255).astype(np.uint8).transpose(1, 2, 0)
+            same.append(verify == "ok" and img == np.ascontiguousarray(want_img).tobytes())
+        per = {s: launches["viewer"][s] / viewer_requests for s in PATH_KERNELS}
+        res["viewer"] = {"requests": served, "replies_bitwise": same,
+                         "median_ms_per_request": float(np.median(client["ms"])),
+                         "client_ms": client["ms"], "gaussians": int(m.count),
+                         "launches_per_request": per,
+                         "composite_windowed_at_viewer_config": view_check}
+        assert served == viewer_requests and all(same), res["viewer"]
+        # SLAMConfig() renders on the windowed host-table path: rows 1 and 4
+        assert per == {"sags_fill_table": 1, "sags_composite_fused": 0,
+                       "sags_composite_fused_bwd": 0, "sags_composite_windowed": 1}, per
+        emit({"phase": "sources", "viewer": res["viewer"]})
+
+    # (e) the native host library against its fallbacks on the card
+    with timer.phase("e_native"):
+        assert native.available(), f"native library: {native.build_error}"
+        scan = np.ascontiguousarray(frames[0].scan, np.float32)
+        nat = {}
+
+        def timed(key, fn, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            nat[key] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def fallback(fn, *args, **kw):
+            with swapped(native, "_library", lambda: None):
+                return fn(*args, **kw)
+
+        res_m = 0.25  # a power of two: both sides put every point in the same voxel
+        ds_n = timed("voxel_downsample_ms", native.voxel_downsample, scan, res_m)
+        ds_f = timed("voxel_downsample_fallback_ms", fallback, native.voxel_downsample, scan,
+                     res_m, device=device)
+        order = lambda a: a[np.lexsort(np.floor(a / res_m).T)]
+        ds_err = (float(np.abs(order(ds_n) - order(ds_f)).max())
+                  if len(ds_n) == len(ds_f) else math.inf)
+        d2_n, idx_n = timed("kdtree_knn_ms", native.KDTree(scan).knn, scan, knn_k)
+        d2_f, idx_f = timed("kdtree_knn_fallback_ms", fallback,
+                            lambda: native.KDTree(scan, device=device).knn(scan, knn_k))
+        # the fallback computes |q|^2 + |p|^2 - 2 q.p in float32 (`ops.knn`,
+        # the JAX package's formula), whose rounding grows with the squared
+        # norms: the distances are held to 1e-5 plus that rounding bound
+        bar = knn_bar(scan, d2_n)
+        # float64 neighbours tell ties apart: a rank is held where its exact
+        # distance is clear of the ranks beside it by twice the bar
+        s64 = scan.astype(np.float64)
+        exact = np.empty((len(scan), knn_k + 1))
+        for lo in range(0, len(scan), 512):
+            dd = ((s64[lo:lo + 512, None] - s64[None]) ** 2).sum(-1)
+            exact[lo:lo + 512] = np.sort(np.partition(dd, knn_k, axis=1)[:, :knn_k + 1], 1)
+        gap = np.diff(exact, axis=1)
+        clear = gap[:, :knn_k] > 2 * bar.max(1, keepdims=True)
+        clear[:, 1:] &= gap[:, :knn_k - 1] > 2 * bar.max(1, keepdims=True)
+        raw = np.zeros((len(scan), 8), "<f4")
+        raw[:, :3] = frames[0].points
+        rgbu = (np.clip(frames[0].colors, 0, 1) * 255).astype(np.uint32)
+        raw[:, 4] = ((rgbu[:, 0] << 16) | (rgbu[:, 1] << 8) | rgbu[:, 2]).view(np.float32)
+        xyz_n, rgb_n = timed("decode_xyzrgb_ms", native.decode_xyzrgb, raw.tobytes(), 32)
+        xyz_f, rgb_f = timed("decode_xyzrgb_fallback_ms", fallback, native.decode_xyzrgb,
+                             raw.tobytes(), 32)
+        res["native"] = dict(nat, built_with=native.built_with, points=len(scan),
+                             voxels=[len(ds_n), len(ds_f)], voxel_max_abs_err=ds_err,
+                             knn_k=knn_k, knn_d2_max_abs_err=float(np.abs(d2_n - d2_f).max()),
+                             knn_d2_err_over_bar=float((np.abs(d2_n - d2_f) / bar).max()),
+                             knn_ranks_held=int(clear.sum()),
+                             knn_idx_equal_where_clear=bool((idx_n == idx_f)[clear].all()),
+                             decode_bitwise=bool(np.array_equal(xyz_n, xyz_f)
+                                                 and np.array_equal(rgb_n, rgb_f)))
+        emit({"phase": "sources", "native": res["native"]})
+        assert res["native"]["voxel_max_abs_err"] <= 1e-5, res["native"]
+        assert res["native"]["knn_d2_err_over_bar"] <= 1.0, res["native"]
+        assert res["native"]["knn_idx_equal_where_clear"], res["native"]
+        assert res["native"]["decode_bitwise"], res["native"]
+
+    # (f) the phases' report, and one traced frame
+    print("\n".join("# sources: " + ln for ln in timer.report().splitlines()), flush=True)
+    write_rosbag(path["one.bag"], frames[:1])
+    t0 = time.perf_counter()
+    with trace(path["trace"]):
+        cli_main(["run-slam", "--dataset", "rosbag", "--path", path["one.bag"],
+                  *run_flags, "--post-train", "0"], device)
+    written = sorted(os.listdir(path["trace"]))
+    res["trace"] = {"files": written, "seconds": time.perf_counter() - t0,
+                    "bytes": sum(os.path.getsize(os.path.join(path["trace"], f))
+                                 for f in written)}
+    res["phase_seconds"] = {k: v["mean_ms"] / 1e3 for k, v in timer.summary().items()}
+    assert written and res["trace"]["bytes"] > 0, res["trace"]
+    emit({"phase": "sources", "trace": res["trace"], "phase_seconds": res["phase_seconds"]})
+    shutil.rmtree(work, ignore_errors=True)
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -2927,7 +3494,8 @@ def main() -> int:
     tracking_phase(device, frames, dict(classic, poses=poses, lm_log=pipe.lm_log))
     module_launches = esikf_phase(device, frames, dict(classic, poses=poses))
     offline_launches = offline_phase(device, frames, classic["dataset"])
-    _, cli_launches = cli_phase(device)
+    cli_res, cli_launches = cli_phase(device)
+    _, sources_launches = sources_phase(device, cli_res)
 
     # (source, TPU kernel, C symbol, the path whose launches count, frames on it)
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -2978,6 +3546,7 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r.get("library_ms"),
             "cli_launches": cli_launches[sym],
+            "sources_launches": {k: v[sym] for k, v in sources_launches.items()},
             **({"empty_kernel_ms": r["empty_ms"],
                 "torch_full_ms": r["full_ms"], "semantic_loop_launches": sem["launches"][sym]}
                if name == "fill_table" else {}),

@@ -1,19 +1,20 @@
 """Command-line entry points (`sags_tpu.cli.main` in torch).
 
 `python -m sags_tpu_torch.cli.main <command>`, or `main(argv)` in-process:
-  run-slam  — online SLAM over a dataset (synthetic, or a live TCP stream).
+  run-slam  — online SLAM over a dataset (synthetic, TUM, Replica), a ROS1
+              bag or a live TCP stream.
   train     — offline 3DGS optimization over a replayed frame set.
-  run-gicp  — scan-to-scan or scan-to-keyframe-map odometry over a dataset.
+  run-gicp  — scan-to-scan or scan-to-keyframe-map odometry over a dataset
+              (KITTI velodyne scans too).
   align     — pairwise-alignment timing harness over two point clouds.
   render    — render a view of a saved PLY map to a PNG.
+  viewer    — serve a saved PLY map to a SIBR remote viewer.
   eval      — PSNR/SSIM/LPIPS of a saved map against a dataset.
   serve     — publish a dataset as a live TCP frame stream.
 
 Flags, defaults and JSON lines are the JAX package's. One flag is the
 port's own: `--device` (default `cuda`), the only way to run on the CPU;
-without a GPU the default raises. The `viewer` command and the `tum`,
-`replica`, `kitti` and `rosbag` sources keep their argparse choices and
-raise: they are not ported yet (ROADMAP.md A.8 and A.7).
+without a GPU the default raises.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ import numpy as np
 
 from sags_tpu_torch import resolve_device
 
-_A7 = "is not ported to sags_tpu_torch yet (ROADMAP.md A.7)"
-
 
 def _load_dataset(args, device):
     from sags_tpu_torch.io import datasets as D
@@ -43,6 +42,23 @@ def _load_dataset(args, device):
             n_frames=args.frames, width=args.width, height=args.height,
             clutter=0.35, imu_substeps=5, texture=args.texture, step=args.step,
             n_world=args.world_points, pts_per_frame=args.scan_points, device=device))
+    if args.dataset == "tum":
+        return list(D.TUMDataset(args.path))
+    if args.dataset == "replica":
+        return list(D.ReplicaDataset(args.path))
+    if args.dataset == "kitti":
+        # KITTI odometry velodyne scans (`src/kitti.cpp` KittiLoader)
+        return list(D.KITTIOdometryDataset(
+            args.path, poses_file=args.poses, times_file=args.times,
+            calib_file=args.calib, max_points=args.max_points))
+    if args.dataset == "rosbag":
+        # ROS1 bag replay of the node's three topics (io/rosbag.py): a
+        # generator, staged frame by frame like the socket source
+        from sags_tpu_torch.io.rosbag import RosbagDataset
+
+        return iter(RosbagDataset(
+            args.path, image_topic=args.image_topic, cloud_topic=args.cloud_topic,
+            odom_topic=args.odom_topic, imu_topic=args.imu_topic or None))
     if args.dataset == "socket":
         # live TCP ingestion (io/stream.py): a generator, not a list — the
         # pipeline stages it frame by frame and applies timeout_s silence
@@ -50,7 +66,7 @@ def _load_dataset(args, device):
 
         # generous connect window: a publisher may still be loading/rendering
         return socket_frames(args.port, connect_timeout=180.0)
-    raise NotImplementedError(f"--dataset {args.dataset} {_A7}")
+    raise SystemExit(f"unknown dataset {args.dataset}")
 
 
 def cmd_run_slam(args):
@@ -194,6 +210,9 @@ def cmd_run_gicp(args):
     reg = (R.FastVGICP if args.method == "vgicp" else R.FastGICP)(device=device)
     poses = [np.eye(4)]
     times = []
+    # KITTI scans are raw sensor frames; their ground truth is optional
+    raw_sensor = args.dataset == "kitti"
+    has_gt = not raw_sensor or bool(args.poses)
 
     def sensor_frame(f):
         # frames carrying a raw `scan` feed it to the tracker; world-frame
@@ -235,8 +254,16 @@ def cmd_run_gicp(args):
             poses.append(poses[-1] @ delta)
             reg.swap_source_and_target()
     poses = np.stack(poses)
-    gt = np.stack([np.asarray(f.pose) for f in frames])
-    ate, _ = ate_rmse(poses, gt)
+    gt = ate = None
+    if has_gt:
+        if raw_sensor and not args.calib:
+            # KITTI GT is T_w_cam0 and the estimates are velodyne-frame:
+            # without the Tr conjugation (--calib) the ATE mixes the frames
+            print("WARNING: --poses without --calib: ATE mixes cam0-frame GT "
+                  "with velodyne-frame estimates; pass the sequence's "
+                  "calib.txt for a faithful metric", file=sys.stderr)
+        gt = np.stack([np.asarray(f.pose) for f in frames])
+        ate, _ = ate_rmse(poses, gt)
     print(json.dumps({
         "frames": len(frames),
         "method": args.method,
@@ -338,10 +365,14 @@ def cmd_serve(args):
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write an [H, W, 3] uint8 image as an 8-bit RGB PNG (stdlib only:
-    every row filter 0, one zlib stream)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    H, W, _ = img.shape
+    """Write an [H, W, 3] uint8 image as an 8-bit RGB PNG, or an [H, W]
+    uint16 one (a depth image) as a 16-bit gray PNG (stdlib only: every row
+    filter 0, one zlib stream)."""
+    if img.ndim == 2:
+        img, depth, color = np.ascontiguousarray(img, ">u2"), 16, 0
+    else:
+        img, depth, color = np.ascontiguousarray(img, np.uint8), 8, 2
+    H, W = img.shape[:2]
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(H))
 
     def chunk(tag: bytes, data: bytes) -> bytes:
@@ -350,7 +381,7 @@ def write_png(path: str, img: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
@@ -378,9 +409,44 @@ def cmd_render(args):
     return img
 
 
+def serve_viewer(gui, m, cfg, requests=None) -> int:
+    """Answer SIBR viewer requests on `gui` with renders of the map `m` at
+    `cfg` until `requests` were served (None: until interrupted); returns
+    the number served."""
+    import torch
+
+    from sags_tpu_torch.slam.step import render_map
+
+    def render(cam):
+        with torch.no_grad():
+            return render_map(m, cam, cfg).color
+
+    served = 0
+    while requests is None or served < requests:
+        if gui.serve_once(render):
+            served += 1
+        else:
+            time.sleep(0.02)  # no viewer connected yet
+    return served
+
+
 def cmd_viewer(args):
-    raise NotImplementedError(
-        "the SIBR network viewer is not ported to sags_tpu_torch yet (ROADMAP.md A.8)")
+    """Serve the map to a SIBR remote viewer (`network_gui` protocol)."""
+    from sags_tpu_torch.core.config import SLAMConfig
+    from sags_tpu_torch.io.ply import load_map_ply
+    from sags_tpu_torch.viz.network_gui import NetworkGUI
+
+    device = resolve_device(args.device)
+    m = load_map_ply(args.map, device=device)
+    gui = NetworkGUI(port=args.port, device=device)
+    print(f"viewer socket on 127.0.0.1:{args.port} ({int(m.count)} gaussians)",
+          file=sys.stderr)
+    try:
+        serve_viewer(gui, m, SLAMConfig())
+    except KeyboardInterrupt:
+        pass
+    finally:
+        gui.close()
 
 
 def cmd_eval(args):

@@ -1,11 +1,16 @@
-"""Frames and the synthetic sequence (own copies of `sags_tpu.io.datasets`'s
-`Frame` and `SyntheticDataset`). Ground-truth images are rendered with this
-package's own rasterizer (classic path), on the dataset's device."""
+"""Frames, the dataset readers and the synthetic sequence (own copies of
+`sags_tpu.io.datasets`): TUM RGB-D, Replica, NeRF-synthetic (Blender) and
+KITTI odometry, with their timestamp association and depth back-projection.
+The readers stay on the host (numpy); images go through `io.images.imread`.
+`SyntheticDataset` renders its ground truth with this package's own
+rasterizer (classic path), on the dataset's device."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional
+import json
+import os
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -13,7 +18,8 @@ import torch
 from sags_tpu_torch import resolve_device
 from sags_tpu_torch.core.camera import make_camera
 from sags_tpu_torch.core.config import RasterizeConfig
-from sags_tpu_torch.core.transforms import LIDAR_TO_CAM, so3_exp, so3_log
+from sags_tpu_torch.core.transforms import LIDAR_TO_CAM, quat_to_rotmat, so3_exp, so3_log
+from sags_tpu_torch.io.images import imread
 
 
 @dataclasses.dataclass
@@ -28,6 +34,180 @@ class Frame:
     depth: Optional[np.ndarray] = None  # [H,W] meters
     imu: Optional[np.ndarray] = None  # [M,7] gyro, accel, dt
     scan: Optional[np.ndarray] = None  # [N,3] sensor-frame scan
+
+
+def associate_timestamps(
+    a: Sequence[float], b: Sequence[float], max_dt: float = 0.08
+) -> List[Tuple[int, int]]:
+    """Greedy nearest-timestamp association (`traj_utils.py` TUM logic)."""
+    pairs = []
+    j = 0
+    b = list(b)
+    for i, ta in enumerate(a):
+        # advance j to the closest b
+        while j + 1 < len(b) and abs(b[j + 1] - ta) <= abs(b[j] - ta):
+            j += 1
+        if b and abs(b[j] - ta) < max_dt:
+            pairs.append((i, j))
+    return pairs
+
+
+def backproject_depth(
+    depth: np.ndarray, rgb: np.ndarray, fx, fy, cx, cy, pose: np.ndarray,
+    stride: int = 4, max_depth: float = 10.0,
+):
+    """depth [H,W] (meters) + rgb [3,H,W] → world points/colors via pose."""
+    H, W = depth.shape
+    v, u = np.mgrid[0:H:stride, 0:W:stride]
+    z = depth[v, u]
+    ok = (z > 0.05) & (z < max_depth)
+    u, v, z = u[ok], v[ok], z[ok]
+    x = (u - cx) / fx * z
+    y = (v - cy) / fy * z
+    pts_cam = np.stack([x, y, z], -1)
+    pts = pts_cam @ pose[:3, :3].T + pose[:3, 3]
+    cols = rgb[:, v, u].T
+    return pts.astype(np.float32), cols.astype(np.float32)
+
+
+class TUMDataset:
+    """TUM RGB-D: rgb.txt / depth.txt / groundtruth.txt association, depth
+    PNGs at 5000 a metre."""
+
+    depth_scale = 5000.0
+
+    def __init__(self, root: str, intrinsics=(535.4, 539.2, 320.1, 247.6),
+                 stride: int = 4, max_dt: float = 0.08):
+        self.root = root
+        self.fx, self.fy, self.cx, self.cy = intrinsics
+        self.stride = stride
+
+        def read_list(name):
+            out = []
+            with open(os.path.join(root, name)) as f:
+                for line in f:
+                    if line.startswith("#") or not line.strip():
+                        continue
+                    parts = line.split()
+                    out.append((float(parts[0]), parts[1:]))
+            return out
+
+        rgb = read_list("rgb.txt")
+        depth = read_list("depth.txt")
+        gt = read_list("groundtruth.txt")
+        rd = associate_timestamps([t for t, _ in rgb], [t for t, _ in depth], max_dt)
+        self.items = []
+        for i, j in rd:
+            t = rgb[i][0]
+            pairs = associate_timestamps([t], [g[0] for g in gt], max_dt)
+            if not pairs:
+                continue
+            k = pairs[0][1]
+            tx, ty, tz, qx, qy, qz, qw = (float(x) for x in gt[k][1][:7])
+            R = quat_to_rotmat(torch.tensor([qx, qy, qz, qw], dtype=torch.float32)).numpy()
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = R
+            pose[:3, 3] = (tx, ty, tz)
+            self.items.append((t, rgb[i][1][0], depth[j][1][0], pose))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __iter__(self) -> Iterator[Frame]:
+        for t, rgb_path, depth_path, pose in self.items:
+            img = imread(os.path.join(self.root, rgb_path))
+            img = np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0
+            d = imread(os.path.join(self.root, depth_path))
+            d = np.asarray(d, np.float32) / self.depth_scale
+            pts, cols = backproject_depth(
+                d, img, self.fx, self.fy, self.cx, self.cy, pose, self.stride
+            )
+            yield Frame(img, pts, cols, pose, t, depth=d)
+
+
+class ReplicaDataset:
+    """Replica (GS-ICP-SLAM layout): results/frame%06d.jpg (or any image
+    named frame*), depth%06d.png at 6553.5 a metre, traj.txt with 16 floats
+    per line."""
+
+    depth_scale = 6553.5
+
+    def __init__(self, root: str, intrinsics=(600.0, 600.0, 599.5, 339.5),
+                 stride: int = 4):
+        self.root = root
+        self.fx, self.fy, self.cx, self.cy = intrinsics
+        self.stride = stride
+        self.poses = np.loadtxt(os.path.join(root, "traj.txt")).reshape(-1, 4, 4)
+        rdir = os.path.join(root, "results")
+        self.frames = sorted(
+            f for f in os.listdir(rdir) if f.startswith("frame")
+        )
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __iter__(self) -> Iterator[Frame]:
+        for i, name in enumerate(self.frames):
+            img = imread(os.path.join(self.root, "results", name))
+            img = np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0
+            dname = name.replace("frame", "depth").rsplit(".", 1)[0] + ".png"
+            d = imread(os.path.join(self.root, "results", dname))
+            d = np.asarray(d, np.float32) / self.depth_scale
+            pose = self.poses[i].astype(np.float32)
+            pts, cols = backproject_depth(
+                d, img, self.fx, self.fy, self.cx, self.cy, pose, self.stride
+            )
+            yield Frame(img, pts, cols, pose, float(i) / 30.0, depth=d)
+
+
+class BlenderDataset:
+    """NeRF-synthetic (`transforms_*.json`) reader — `readNerfSyntheticInfo`
+    (`scene/dataset_readers.py`). RGBA images are composited over a white or
+    black background, as in the reference."""
+
+    def __init__(self, root: str, split: str = "train", white_background: bool = False):
+        self.root = root
+        with open(os.path.join(root, f"transforms_{split}.json")) as f:
+            meta = json.load(f)
+        self.camera_angle_x = float(meta["camera_angle_x"])
+        self.frames_meta = meta["frames"]
+        self.white_background = white_background
+
+    def __len__(self):
+        return len(self.frames_meta)
+
+    def __iter__(self) -> Iterator[Frame]:
+        for i, fr in enumerate(self.frames_meta):
+            path = os.path.join(self.root, fr["file_path"])
+            if not os.path.splitext(path)[1]:
+                path += ".png"
+            img = np.asarray(imread(path), np.float32) / 255.0
+            if img.shape[-1] == 4:  # alpha composite (`dataset_readers.py` NeRF path)
+                bg = 1.0 if self.white_background else 0.0
+                img = img[..., :3] * img[..., 3:4] + bg * (1 - img[..., 3:4])
+            # Blender c2w uses OpenGL axes (y up, z back): flip to our +z-forward
+            c2w = np.asarray(fr["transform_matrix"], np.float32)
+            c2w[:3, 1:3] *= -1
+            yield Frame(
+                image=img.transpose(2, 0, 1).astype(np.float32),
+                points=np.zeros((0, 3), np.float32),
+                colors=np.zeros((0, 3), np.float32),
+                pose=c2w,
+                timestamp=float(i),
+            )
+
+
+def scannetpp_to_traj(transforms_json: str, out_traj: str):
+    """ScanNet++ transforms → traj.txt rows of flattened 4x4 poses
+    (`utils/scannetpp_pose.py` one-off converter)."""
+    with open(transforms_json) as f:
+        meta = json.load(f)
+    frames = sorted(meta["frames"], key=lambda fr: fr["file_path"])
+    with open(out_traj, "w") as f:
+        for fr in frames:
+            c2w = np.asarray(fr["transform_matrix"], np.float64)
+            c2w[:3, 1:3] *= -1
+            f.write(" ".join(f"{v:.9f}" for v in c2w.reshape(-1)) + "\n")
 
 
 GT_RASTER = RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=512, chunk=64)
@@ -203,6 +383,110 @@ class SyntheticDataset:
                 imu=imu,
                 scan=rel[sel].astype(np.float32),
             )
+
+
+class KITTIOdometryDataset:
+    """KITTI odometry velodyne sequence — the `KittiLoader` of the reference
+    benchmark harness (`submodules/fast_gicp/src/kitti.cpp:22-68`).
+
+    Scans are `%06d.bin` float32 (x, y, z, intensity) files counted up from
+    000000.bin, exactly like the reference loader. Points stay in the SENSOR
+    frame (odometry estimates the trajectory; there is no world registration
+    to undo). Optional sidecars:
+
+    - ``times_file`` (`times.txt`): per-scan timestamps (else scan index).
+    - ``poses_file`` (odometry GT, 12 floats/line = the top 3×4 of T_w_cam0):
+      ground-truth poses for ATE. GT lives in the cam0 frame; when
+      ``calib_file`` (with a `Tr:` velo→cam0 line) is given, poses are mapped
+      into the velodyne frame as ``Tr⁻¹ · T_w_cam0 · Tr``.
+    """
+
+    def __init__(self, velodyne_dir: str, poses_file: str = "",
+                 times_file: str = "", calib_file: str = "",
+                 max_points: int = 0):
+        self.dir = velodyne_dir
+        self.max_points = max_points
+        self.files: List[str] = []
+        i = 0
+        while True:  # reference contract: count %06d.bin from 0 until a gap
+            f = os.path.join(velodyne_dir, f"{i:06d}.bin")
+            if not os.path.exists(f):
+                break
+            self.files.append(f)
+            i += 1
+        if not self.files:
+            raise FileNotFoundError(f"no %06d.bin scans in {velodyne_dir}")
+
+        self.times = None
+        if times_file:
+            self.times = np.loadtxt(times_file, dtype=np.float64).reshape(-1)
+
+        self.has_gt = False
+        self.poses = None
+        if poses_file:
+            rows = np.loadtxt(poses_file, dtype=np.float64).reshape(-1, 12)
+            T = np.tile(np.eye(4), (len(rows), 1, 1))
+            T[:, :3, :4] = rows.reshape(-1, 3, 4)
+            if calib_file:
+                Tr = self._read_calib_tr(calib_file)
+                T = np.linalg.inv(Tr)[None] @ T @ Tr[None]
+            self.poses = T.astype(np.float32)
+            self.has_gt = True
+
+    @staticmethod
+    def _read_calib_tr(calib_file: str) -> np.ndarray:
+        Tr = np.eye(4)
+        with open(calib_file) as f:
+            for line in f:
+                if line.startswith("Tr:") or line.startswith("Tr "):
+                    body = line.split(":", 1)[1] if ":" in line else line[3:]
+                    vals = np.array(body.split(), np.float64)
+                    Tr[:3, :4] = vals.reshape(3, 4)
+                    break
+        return Tr
+
+    def scan(self, i: int) -> np.ndarray:
+        """[N,3] float32 sensor-frame points of scan i (intensity dropped,
+        `kitti.cpp:40-65`)."""
+        raw = np.fromfile(self.files[i], dtype=np.float32)
+        pts = raw.reshape(-1, 4)[:, :3]
+        pts = pts[np.isfinite(pts).all(axis=1)]
+        if self.max_points and len(pts) > self.max_points:
+            step = len(pts) / self.max_points
+            pts = pts[(np.arange(self.max_points) * step).astype(np.int64)]
+        return np.ascontiguousarray(pts)
+
+    def __len__(self):
+        return len(self.files)
+
+    def __iter__(self) -> Iterator[Frame]:
+        for i in range(len(self.files)):
+            pts = self.scan(i)
+            ts = float(self.times[i]) if self.times is not None else float(i)
+            if self.poses is not None:
+                # GT available: world points for map growth + raw scan for
+                # tracking (the tracker must never consume GT)
+                T = self.poses[i].astype(np.float32)
+                world = pts @ T[:3, :3].T + T[:3, 3]
+                yield Frame(
+                    image=np.zeros((3, 1, 1), np.float32),  # LiDAR-only
+                    points=world,
+                    colors=np.zeros_like(pts),
+                    pose=T,
+                    timestamp=ts,
+                    scan=pts,
+                )
+            else:
+                # pose-LESS odometry stream (the reference harness's mode,
+                # `python_tester/gicp_odometry2.py:126-166`)
+                yield Frame(
+                    image=np.zeros((3, 1, 1), np.float32),
+                    points=np.zeros((0, 3), np.float32),
+                    colors=np.zeros_like(pts),
+                    pose=None,
+                    timestamp=ts,
+                    scan=pts,
+                )
 
 
 def resolution_policy(width: int, height: int, resolution: int = -1,

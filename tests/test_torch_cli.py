@@ -3,8 +3,9 @@
 checkpoint and --resume, under every tracking backend and mask back-end,
 over the socket from `serve`, run-gicp in both
 modes and align against the JAX CLI on the same inputs, render and eval of
-a saved map, train, and the sources and commands not ported yet; and the
-kernel headers shipped as package data."""
+a saved map, and train; and the kernel headers shipped as package data.
+The other sources and the viewer: `tests/test_torch_rosbag.py`,
+`tests/test_torch_datasets.py`, `tests/test_torch_aux.py`."""
 
 import fnmatch
 import json
@@ -220,19 +221,6 @@ def test_train_saves_a_map(tmp_path, capsys):
     assert set(line) == {"iters", "final_loss", "active_gaussians", "iters_per_sec"}
     assert line["iters"] == 4 and np.isfinite(line["final_loss"])
     assert line["active_gaussians"] > 0 and out.exists()
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["viewer", "--map", "m.ply"], "A.8"),
-    (["run-slam", "--dataset", "tum", "--path", "x"], "A.7"),
-    (["run-slam", "--dataset", "replica", "--path", "x"], "A.7"),
-    (["run-slam", "--dataset", "rosbag", "--path", "x"], "A.7"),
-    (["run-gicp", "--dataset", "kitti", "--path", "x"], "A.7"),
-])
-def test_unported_choices_raise(argv, item):
-    """The reference's choices parse, and raise naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main([*argv, "--device", "cpu"])
 
 
 def test_default_device_is_the_card():

@@ -757,6 +757,84 @@ def test_robust_inv3_on_the_card_matches_the_cpu(device):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+def test_native_library_against_its_fallback_on_the_card(device):
+    """The native host library (built into the port's build directory)
+    against its fallbacks run on the card: the same voxel centroids within
+    1e-5, kNN distances within 1e-5 plus the float32 rounding of the
+    fallback's |q|^2 + |p|^2 - 2 q.p (`chip_smoke.knn_bar`) and the same
+    neighbours, the decode bitwise (`chip_smoke.py`'s sources phase (e) at a
+    small size)."""
+    from chip_smoke import knn_bar, swapped
+    from sags_tpu_torch.io import native
+
+    assert native.available(), native.build_error
+    rng = np.random.default_rng(0)
+    pts = (rng.normal(size=(1024, 3)) * 3).astype(np.float32)
+    ds_n = native.voxel_downsample(pts, 0.5)
+    d2_n, idx_n = native.KDTree(pts).knn(pts[:128], 6)
+    raw = np.zeros((64, 8), "<f4")
+    raw[:, :3] = pts[:64]
+    raw[:, 4] = rng.integers(0, 1 << 24, 64).astype(np.uint32).view(np.float32)
+    dec_n = native.decode_xyzrgb(raw.tobytes(), 32)
+    with swapped(native, "_library", lambda: None):
+        ds_f = native.voxel_downsample(pts, 0.5, device=device)
+        d2_f, idx_f = native.KDTree(pts, device=device).knn(pts[:128], 6)
+        dec_f = native.decode_xyzrgb(raw.tobytes(), 32)
+    order = lambda a: a[np.lexsort(np.floor(a / 0.5).T)]
+    assert len(ds_n) == len(ds_f)
+    np.testing.assert_allclose(order(ds_n), order(ds_f), atol=1e-5, rtol=0)
+    assert (np.abs(d2_n - d2_f) <= knn_bar(pts[:128], d2_n)).all()
+    assert np.array_equal(idx_n, idx_f)
+    assert all(np.array_equal(a, b) for a, b in zip(dec_n, dec_f))
+
+
+def test_viewer_request_on_the_card_is_render_map(device):
+    """One SIBR request served by the CLI's viewer loop on the card: the
+    reply is bitwise the uint8 image of `render_map` at the request's
+    camera, rendered on the windowed host-table path (one `fill_table` and
+    one `composite_windowed` launch)."""
+    import threading
+
+    from chip_smoke import launch_counts, sibr_request, unflip, viewer_client
+    from sags_tpu_torch.cli.main import serve_viewer
+    from sags_tpu_torch.core.config import MapConfig, SLAMConfig
+    from sags_tpu_torch.mapping import gaussian_map as gm
+    from sags_tpu_torch.slam.step import render_map
+    from sags_tpu_torch.utils.draws import TorchDraws
+    from sags_tpu_torch.viz.network_gui import MiniCam, NetworkGUI
+
+    means, _, _, _, colors, _ = (t.to(device) for t in _scene(6, n=300))
+    m = gm.init_map(512, MapConfig(initial_scale=0.08), device)
+    m, _ = gm.add_points(m, means, colors, torch.ones(300, dtype=torch.bool, device=device),
+                         TorchDraws(0, device), initial_scale=0.08, initial_opacity=0.6)
+    cfg = SLAMConfig()
+    msg = sibr_request(make_camera(np.eye(3), np.array([0.1, 0.0, -0.2]), W, H, 1.2, 0.9,
+                                   device=device))
+    gui = NetworkGUI(port=0, device=device)
+    out, served = {}, []
+    # the loop in a thread, the client here: a failing client raises
+    server = threading.Thread(target=lambda: served.append(serve_viewer(gui, m, cfg, requests=1)),
+                              daemon=True)
+    _build.reset_launch_counts()
+    server.start()
+    try:
+        viewer_client(gui.listener.getsockname()[1], [msg], out)
+        server.join(60.0)
+    finally:
+        gui.close()
+    assert served == [1]
+    counts = launch_counts()
+    assert counts["sags_fill_table"] == 1 and counts["sags_composite_windowed"] == 1
+    assert counts["sags_composite_fused"] == 0
+    cam = MiniCam(W, H, msg["fov_y"], msg["fov_x"], msg["z_near"], msg["z_far"],
+                  *unflip(msg), device=device).camera
+    with torch.no_grad():
+        color = render_map(m, cam, cfg).color.cpu().numpy()
+    want = np.clip(color * 255, 0, 255).astype(np.uint8).transpose(1, 2, 0)
+    (img, verify), = out["replies"]
+    assert verify == "ok" and img == np.ascontiguousarray(want).tobytes() and want.max() > 0
+
+
 def test_header_edit_changes_the_library_hash(monkeypatch, tmp_path):
     """A library is named by its source and every `csrc/` header it
     includes: editing a header that only an included header includes still
