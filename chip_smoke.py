@@ -180,11 +180,30 @@ Phases, each failing the run (non-zero exit, no result line):
      and held against its fallbacks on the card (voxel centroids within
      1e-5, kNN distances within 1e-5 plus the fallback's float32 rounding
      and indices away from ties, the PointCloud2 decode bitwise); (f) a `PhaseTimer` report of (a)-(e) and a
-     `trace` of a one-frame bag.
+     `trace` of a one-frame bag;
+ 13. the tile-sharded mesh (`parallel/mesh.py`), run after phase 5 from
+     the slam and slam_windowed phases' states: (a) `SLAMPipeline(mesh=
+     make_mesh())` on one NCCL rank in this process over the loop cell's
+     first 16 frames, its final state bitwise equal to `mesh=None`'s; (b)
+     2 and 3 ranks on this card over gloo (spawned; 3 ranks pad the 1280
+     tiles to 1281), each loading the two loops' checkpoints and newest
+     keyframes and running 5 classic and 5 windowed `slam_step`s: every
+     rank's state bitwise equal to the others', the losses (rtol 1e-5),
+     f_dc (atol 1e-5) and xyz (atol 1e-6) against the same steps unsharded
+     in this process, the compositors at each rank's tile offset against
+     their plain versions at the loop bars (classic forward 1e-3, windowed
+     forward bitwise, backwards 2e-4 per row), exactly one launch of each
+     of the mode's compositors a step on every rank; the ms a step per
+     rank and the 32 MiB dG all-reduce alone; (c) a 2-rank
+     `SLAMPipeline(mesh=...)` over the 16 frames: finite, falling losses,
+     the ATE within 1% of the classic loop's, the ranks bitwise equal; (d)
+     with two cards or more, (b) and (c) over NCCL, one rank per card
+     (skipped, and said so, on one card).
 Launch counts are zeroed just before each main path (each loop, each eval
-mode, each offline run, the CLI's run-slam and train) and read just after;
-`cli_launches` on the kernels line is the CLI run-slam's, `sources_launches`
-the sources phase's runs' (the bag, TUM, Replica, the viewer). The line before
+mode, each offline run, the CLI's run-slam and train, each mesh run on each
+rank) and read just after; `cli_launches` on the kernels line is the CLI
+run-slam's, `sources_launches` the sources phase's runs' (the bag, TUM,
+Replica, the viewer), `mesh_launches` the mesh phase's runs' (per rank). The line before
 the last holds each kernel's launches on its path (rows 1-3 also in the
 offline run, `offline_launches`), its time, its plain version's time, the
 library call's time and its bound. A kernel's `ms` and `library_ms` are device time
@@ -198,6 +217,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -354,12 +374,14 @@ def cull_stats(live, gated, counts):
             "gated_strips_dropped": int((gated & ~live).sum())}
 
 
-def strip_check(G, table, counts, tiles_x, alpha_min):
-    """`cull_stats` of the classic forward kernel (`composite.strip_live`)."""
+def strip_check(G, table, counts, tiles_x, alpha_min, tile_offset=0):
+    """`cull_stats` of the classic forward kernel (`composite.strip_live`)
+    on the tiles `tile_offset`.. of the grid."""
     from sags_tpu_torch.ops import composite
 
-    return cull_stats(composite.strip_live(G, table, counts, tiles_x, 0, alpha_min),
-                      composite.strip_gated(G, table, counts, tiles_x, 0, alpha_min), counts)
+    return cull_stats(
+        composite.strip_live(G, table, counts, tiles_x, tile_offset, alpha_min),
+        composite.strip_gated(G, table, counts, tiles_x, tile_offset, alpha_min), counts)
 
 
 def thin_scene(device, aspect, n=8192, K=1024, width=SLICE_W, height=SLICE_H, seed=3):
@@ -712,14 +734,16 @@ class swapped:
         setattr(self.module, self.name, self.old)
 
 
-def cull_share(G_s, rows, counts, tiles_x, alpha_min, ewa_impl="vpu"):
+def cull_share(G_s, rows, counts, tiles_x, alpha_min, ewa_impl="vpu", tile_offset=0):
     """`cull_stats` of the windowed loop (`windowed.strip_live`) on the
-    entries a kernel composites, whose global rows are `rows`."""
+    entries a kernel composites, whose global rows are `rows`, on the tiles
+    `tile_offset`.. of the grid."""
     from sags_tpu_torch.ops import windowed as win
 
-    return cull_stats(win.strip_live(G_s, rows, counts, tiles_x, 0, alpha_min, ewa_impl),
-                      win.strip_gated(G_s, rows, counts, tiles_x, 0, alpha_min, ewa_impl),
-                      counts)
+    return cull_stats(
+        win.strip_live(G_s, rows, counts, tiles_x, tile_offset, alpha_min, ewa_impl),
+        win.strip_gated(G_s, rows, counts, tiles_x, tile_offset, alpha_min, ewa_impl),
+        counts)
 
 
 def sorted_phases(sargs, skw, stops, reps=20):
@@ -1116,25 +1140,27 @@ GATE_STABLE_ATOL = 1e-4
 GATE_UNSTABLE_TILES = 2
 
 
-def near_gate_pairs(G, table, counts, tile, pixel, tiles_x, alpha_min, rel=1e-5) -> int:
-    """The pairs of `tile` whose alpha at `pixel` lies within `rel` of
+def near_gate_pairs(G, table, counts, tile, pixel, tiles_x, alpha_min, rel=1e-5,
+                    tile_offset=0) -> int:
+    """The pairs of `tile` (row `tile` of the table, tile `tile_offset +
+    tile` of the grid) whose alpha at `pixel` lies within `rel` of
     alpha_min (the plain version's float32 arithmetic)."""
     import torch
 
     from sags_tpu_torch.ops import composite
 
-    px, py = composite.tile_pixel_coords(1, tiles_x, 16, tile, G.device)
+    px, py = composite.tile_pixel_coords(1, tiles_x, 16, tile_offset + tile, G.device)
     Gc = G[table[tile, :int(counts[tile])].clamp(min=0).long()][None]
     _, _, power = composite.ewa_power(Gc, px[:, pixel:pixel + 1], py[:, pixel:pixel + 1])
     alpha = torch.clamp(Gc[..., 5][:, None, :] * torch.exp(power), max=0.99)
     return int(((alpha / alpha_min - 1.0).abs() < rel).sum())
 
 
-def loop_fused_check(device, m, cfg, camera):
+def loop_fused_check(device, m, cfg, camera, mesh=None):
     """`composite_fused` and `composite_fused_bwd` against their plain
     versions at the shapes a classic training loop uses (`cfg.raster`'s tile
     capacity, R and chunk) on the inputs `rasterize` prepares from map `m`
-    for `camera`:
+    for `camera` (under `mesh`: this rank's tiles at its tile offset):
     `fill_table` exactly; the forward's acc and T to 1e-3 absolute (the
     share of pixels off, the tiles not gate-stable and the near-gate pairs
     at the worst pixel reported), its strip cull dropping no gated pair;
@@ -1147,6 +1173,7 @@ def loop_fused_check(device, m, cfg, camera):
     from sags_tpu_torch.mapping import gaussian_map as gm
     from sags_tpu_torch.ops import binning, composite
     from sags_tpu_torch.ops import rasterize as rz
+    from sags_tpu_torch.parallel.mesh import shard_tiles, tile_sharding
 
     rc = cfg.raster
     tiles_x, tiles_y = -(-camera.width // rc.tile), -(-camera.height // rc.tile)
@@ -1161,12 +1188,17 @@ def loop_fused_check(device, m, cfg, camera):
     NT = tiles_x * tiles_y
     fill_exact = torch.equal(binning.fill_table(gid_s, starts, NT, rc.tile_capacity),
                              binning.fill_table_plain(gid_s, starts, NT, rc.tile_capacity))
+    toff = 0
+    if mesh is not None:
+        _, toff, _ = tile_sharding(mesh, NT)
+        table, counts = shard_tiles(table, mesh, -1), shard_tiles(counts, mesh)
+        kw["tile_offset"] = toff
     fargs = (G, table, counts, rc.tile, tiles_x)
     acc, T = composite.composite_fused(*fargs, **kw)
     acc_p, T_p = composite.composite_fused_plain(*fargs, **kw)
     torch.cuda.synchronize()
     shapes = {"chunk": rc.chunk, "tile_capacity": rc.tile_capacity,
-              "max_tiles_per_gaussian": rc.max_tiles_per_gaussian,
+              "max_tiles_per_gaussian": rc.max_tiles_per_gaussian, "tile_offset": toff,
               "pairs": int(counts.sum()), "deepest_tile": int(counts.max())}
     d = (acc - acc_p).abs()
     d_px = torch.maximum(d.amax(dim=-1), (T - T_p).abs())  # [NT, 256]
@@ -1181,8 +1213,9 @@ def loop_fused_check(device, m, cfg, camera):
                share_of_pixels_off=float((d_px > 1e-3).to(torch.float32).mean()),
                gate_unstable_tiles=int((~stable).sum()),
                near_gate_pairs_at_worst_pixel=near_gate_pairs(
-                   G, table, counts, worst_tile, worst_px, tiles_x, rc.alpha_min),
-               strip_cull=strip_check(G, table, counts, tiles_x, rc.alpha_min),
+                   G, table, counts, worst_tile, worst_px, tiles_x, rc.alpha_min,
+                   tile_offset=toff),
+               strip_cull=strip_check(G, table, counts, tiles_x, rc.alpha_min, toff),
                ms=cuda_ms(lambda: composite.composite_fused(*fargs, **kw), 5))
     del acc_p, T_p
     g = torch.Generator(device=device).manual_seed(2)
@@ -1318,7 +1351,7 @@ def slam_windowed_phase(device, frames, classic, n_warm=16, n_timed=8):
     assert fwd["bitwise"], f"composite_windowed at the loop's shapes: {fwd}"
     assert fwd["strip_cull"]["gated_strips_dropped"] == 0, \
         f"composite_windowed's cull at the loop's shapes: {fwd}"
-    return launches, n_frames, bwd
+    return launches, n_frames, bwd, pipe
 
 
 def gradients_bitwise(device, pipe, kf):
@@ -1353,11 +1386,12 @@ def gradients_bitwise(device, pipe, kf):
     return bitwise(False), bitwise(True)
 
 
-def loop_bwd_check(device, pipe, camera):
+def loop_bwd_check(device, pipe, camera, mesh=None):
     """The windowed kernels at the shapes the windowed loop trains with (its
     final window, R, tile capacity and slice store) on the inputs
-    `rasterize` prepares for `camera`: `composite_windowed` bitwise equal to
-    its plain version, with its strip cull's share and time; and
+    `rasterize` prepares for `camera` (under `mesh`: this rank's tiles at
+    its tile offset): `composite_windowed` bitwise equal to its plain
+    version, with its strip cull's share and time; and
     `composite_windowed_bwd`, with seeded cotangents, to 2e-4 relative per
     output row, as at the kernel cell."""
     import torch
@@ -1365,6 +1399,7 @@ def loop_bwd_check(device, pipe, camera):
     from sags_tpu_torch.mapping import gaussian_map as gm
     from sags_tpu_torch.ops import rasterize as rz
     from sags_tpu_torch.ops import windowed as win
+    from sags_tpu_torch.parallel.mesh import shard_tiles, tile_sharding
 
     m, rc = pipe.state.map, pipe.cfg.raster
     tiles_x, tiles_y = -(-camera.width // rc.tile), -(-camera.height // rc.tile)
@@ -1375,6 +1410,13 @@ def loop_bwd_check(device, pipe, camera):
                             active_mask=m.active)
         G_s, _, tl, counts, b, d, n, *_ = rz._prepare_windowed(pre, m.obj_dc, tiles_x,
                                                                tiles_y, rc)
+    toff = 0
+    if mesh is not None:
+        NT, R = counts.shape[0], kw["n_span"]
+        _, toff, _ = tile_sharding(mesh, NT)
+        tl, counts = shard_tiles(tl, mesh, -1), shard_tiles(counts, mesh)
+        b, d, n = (shard_tiles(x.reshape(NT, R), mesh).reshape(-1) for x in (b, d, n))
+        kw["tile_offset"] = toff
     fargs = (G_s, tl, counts, b, d, n, rc.tile, tiles_x)
     acc, T = win.composite_windowed(*fargs, **kw)
     acc_p, T_p = win.composite_windowed_plain(*fargs, **kw)
@@ -1382,7 +1424,8 @@ def loop_bwd_check(device, pipe, camera):
     rows = win.window_rows(tl, b, d, n, kw["n_span"])
     fwd = {"bitwise": torch.equal(acc, acc_p) and torch.equal(T, T_p),
            "max_abs_err": max(float((acc - acc_p).abs().max()), float((T - T_p).abs().max())),
-           "strip_cull": cull_share(G_s, rows, counts, tiles_x, rc.alpha_min),
+           "strip_cull": cull_share(G_s, rows, counts, tiles_x, rc.alpha_min,
+                                    tile_offset=toff),
            "ms": cuda_ms(lambda: win.composite_windowed(*fargs, **kw), 5)}
     del acc_p, T_p
     g = torch.Generator(device=device).manual_seed(2)
@@ -1394,7 +1437,7 @@ def loop_bwd_check(device, pipe, camera):
     torch.cuda.synchronize()
     return {"rel_err": row_rel_err(dGt, dGt_p), "max_abs_err": float((dGt - dGt_p).abs().max()),
             "n_span": kw["n_span"], "chunk": kw["chunk"], "tile_capacity": rc.tile_capacity,
-            "window_blocks": rc.window_blocks, "rows": int(G_s.shape[0]),
+            "window_blocks": rc.window_blocks, "rows": int(G_s.shape[0]), "tile_offset": toff,
             "entries": int((tl >= 0).sum()),
             "ms": cuda_ms(lambda: win.composite_windowed_bwd(*bargs, **kw), 5),
             "composite_windowed": fwd}
@@ -3452,6 +3495,330 @@ def sources_phase(device, cli_res, n_frames=24, post_train=20, cell=CLI_CELL,
     return res, launches
 
 
+MESH_FRAMES = 16  # the loop cell's first frames, for the pipeline runs
+MESH_STEPS = 5  # slam_steps per training mode and rank
+MESH_MODES = ("classic", "windowed")
+MESH_TIMEOUT_S = 300  # a rank waiting longer in a collective fails the run
+MESH_COMPOSITORS = {"classic": ("sags_composite_fused", "sags_composite_fused_bwd"),
+                    "windowed": ("sags_composite_windowed", "sags_composite_windowed_bwd")}
+ALLREDUCE_ROWS = 2 ** 18  # the classic dG of the loop cell's map: [2^18, 32] float32
+
+
+def device_sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def state_digest(state) -> dict:
+    """A state for comparing across processes: the sha256 of every leaf in
+    the checkpoint's order (`checkpoint._leaves`, dtype and shape included)
+    and of the generator state, and f_dc and xyz on the host."""
+    import hashlib
+
+    import torch
+
+    from sags_tpu_torch.slam import checkpoint
+
+    def digest(x):
+        t = torch.as_tensor(x).detach().cpu().contiguous()
+        return hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode()
+                              + t.numpy().tobytes()).hexdigest()
+
+    return {"leaves": [digest(x) for x in checkpoint._leaves(state)],
+            "generator": digest(state.rng.generator.get_state()),
+            "f_dc": state.map.f_dc.detach().cpu(), "xyz": state.map.xyz.detach().cpu()}
+
+
+def mesh_inputs(root, pipes, frames) -> None:
+    """What every rank starts from, under `root`: each loop's state and
+    config (`checkpoint.save_state`) with its newest keyframe, one directory
+    per training mode, and the frames of the pipeline runs."""
+    import torch
+
+    from sags_tpu_torch.slam import checkpoint
+
+    for mode, pipe in pipes.items():
+        path = os.path.join(root, mode)
+        checkpoint.save_state(path, pipe.state, pipe.cfg)
+        kf = pipe.keyframes[-1]
+        torch.save({"camera": kf.camera, "image": kf.image, "objects": kf.objects},
+                   os.path.join(path, "keyframe.pt"))
+    torch.save(frames, os.path.join(root, "frames.pt"))
+
+
+def mesh_steps(device, path, mesh):
+    """MESH_STEPS `slam_step`s from the state, config and keyframe saved
+    under `path`, the compositor sharded over `mesh` (None: unsharded), each
+    step timed on the host clock up to a sync. Under a mesh, the mode's
+    compositors are first held at this rank's tile offset against their
+    plain versions on the loaded state (`loop_fused_check`,
+    `loop_bwd_check`); then the launch counts are zeroed just before the
+    steps and read just after."""
+    import torch
+
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.slam import checkpoint
+    from sags_tpu_torch.slam import step as slam_step
+
+    state, cfg = checkpoint.load_state(path, device=device)
+    kf = torch.load(os.path.join(path, "keyframe.pt"), map_location=device,
+                    weights_only=False)
+    out = {}
+    if mesh is not None:
+        if cfg.raster.train_windowed:
+            pipe = type("StepPipe", (), {"state": state, "cfg": cfg})
+            out["kernels"] = loop_bwd_check(device, pipe, kf["camera"], mesh)
+        else:
+            fwd, bwd = loop_fused_check(device, state.map, cfg, kf["camera"], mesh)
+            out["kernels"] = {"fwd": fwd, "bwd": bwd}
+    losses, step_ms = [], []
+    device_sync(device)
+    _build.reset_launch_counts()
+    for _ in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        state, m = slam_step.slam_step(state, kf["camera"], kf["image"], kf["objects"],
+                                       cfg, mesh)
+        device_sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m.loss)
+    out.update(launches=launch_counts(), losses=[float(x) for x in losses],
+               step_ms=step_ms, state=state_digest(state))
+    return out
+
+
+def mesh_pipeline(device, frames, mesh) -> dict:
+    """`SLAMPipeline(mesh=...).run` of the loop cell's config over `frames`,
+    launch counts zeroed just before and read just after."""
+    from sags_tpu_torch.ops import _build
+    from sags_tpu_torch.slam.pipeline import SLAMPipeline
+
+    cfg = slam_config()
+    pipe = SLAMPipeline(cfg, point_budget=cfg.tracking.max_points, rng_seed=0,
+                        device=device, mesh=mesh)
+    device_sync(device)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(frames, post_train=0)
+    device_sync(device)
+    return {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+            "poses": res.poses_est, "poses_gt": res.poses_gt, "losses": res.losses,
+            "train_iters": res.train_iters, "state": state_digest(res.state)}
+
+
+def allreduce_ms(mesh, rows=ALLREDUCE_ROWS, reps=5) -> dict:
+    """The sharded step's dG all-reduce alone: a [rows, 32] float32 tensor,
+    host clock over `reps` calls after one warm call."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones((rows, 32), device=mesh.device)
+    dist.all_reduce(x, group=mesh.group)
+    device_sync(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(x, group=mesh.group)
+    device_sync(mesh.device)
+    return {"ms": (time.perf_counter() - t0) / reps * 1e3, "bytes": x.numel() * 4}
+
+
+def mesh_rank(rank, n, root, backend, devices, pipeline) -> None:
+    """One rank of a mesh-phase run, spawned: joins the group (`file://`
+    rendezvous under `root`), runs `mesh_steps` in both training modes, the
+    all-reduce alone and, with `pipeline`, `mesh_pipeline` over the saved
+    frames, and writes its results under `root`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from sags_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group(backend, init_method=f"file://{root}/rendezvous-{backend}-{n}",
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh(n, devices=devices)
+        out = {mode: mesh_steps(mesh.device, os.path.join(root, mode), mesh)
+               for mode in MESH_MODES}
+        out["allreduce"] = allreduce_ms(mesh)
+        if pipeline:
+            frames = torch.load(os.path.join(root, "frames.pt"), weights_only=False)
+            out["pipeline"] = mesh_pipeline(mesh.device, frames, mesh)
+        torch.save(out, os.path.join(root, f"{backend}-{n}-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(n, root, backend, devices, pipeline):
+    """`mesh_rank` on n spawned processes; their results in rank order and
+    the wall seconds. A rank that fails ends the others and raises."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(n, root, backend, devices, pipeline), nprocs=n,
+                       start_method="spawn")
+    return ([torch.load(os.path.join(root, f"{backend}-{n}-rank{r}.pt"), weights_only=False)
+             for r in range(n)], time.perf_counter() - t0)
+
+
+def assert_digests_equal(a, b, where) -> None:
+    assert a["leaves"] == b["leaves"] and a["generator"] == b["generator"], \
+        (where, [i for i, (x, y) in enumerate(zip(a["leaves"], b["leaves"])) if x != y])
+
+
+def check_mesh_steps(ranks, ref, where) -> dict:
+    """One multi-rank run's `mesh_steps` held: every rank's state bitwise
+    rank 0's; rank 0's losses (rtol 1e-5), f_dc (atol 1e-5) and xyz (atol
+    1e-6) against the unsharded steps, `tests/test_parallel.py`'s bars; each
+    compositor at its rank's offset within the loop bars; per rank and step
+    exactly one launch of each of the mode's compositors and none of the
+    other mode's. Returns the run's summary."""
+    import numpy as np
+
+    out = {}
+    for mode in MESH_MODES:
+        want, got = ref[mode], ranks[0][mode]
+        for r, res in enumerate(ranks[1:], 1):
+            assert_digests_equal(res[mode]["state"], got["state"], f"{where} {mode} rank {r}")
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5,
+                                   err_msg=f"{where} {mode} losses")
+        np.testing.assert_allclose(got["state"]["f_dc"], want["state"]["f_dc"], atol=1e-5,
+                                   rtol=0, err_msg=f"{where} {mode} f_dc")
+        np.testing.assert_allclose(got["state"]["xyz"], want["state"]["xyz"], atol=1e-6,
+                                   rtol=0, err_msg=f"{where} {mode} xyz")
+        for r, res in enumerate(ranks):
+            k = res[mode]["kernels"]
+            if mode == "classic":
+                assert_loop_fused(k["fwd"], k["bwd"], f"{where} rank {r}")
+            else:
+                assert k["rel_err"] <= 2e-4, (where, r, k)
+                assert k["composite_windowed"]["bitwise"], (where, r, k)
+                assert k["composite_windowed"]["strip_cull"]["gated_strips_dropped"] == 0, \
+                    (where, r, k)
+            other = MESH_COMPOSITORS["windowed" if mode == "classic" else "classic"]
+            for sym in MESH_COMPOSITORS[mode]:
+                assert res[mode]["launches"][sym] == MESH_STEPS, (where, mode, r, res[mode]["launches"])
+            for sym in other:
+                assert res[mode]["launches"][sym] == 0, (where, mode, r, res[mode]["launches"])
+        out[mode] = {
+            "losses": got["losses"], "unsharded_losses": want["losses"],
+            "max_loss_rel_diff": float(np.max(np.abs(np.subtract(got["losses"], want["losses"]))
+                                              / np.abs(want["losses"]))),
+            "f_dc_max_abs_diff": float((got["state"]["f_dc"] - want["state"]["f_dc"]).abs().max()),
+            "xyz_max_abs_diff": float((got["state"]["xyz"] - want["state"]["xyz"]).abs().max()),
+            "ms_per_step": [float(np.median(r[mode]["step_ms"][1:])) for r in ranks],
+            "tile_offsets": [(r[mode]["kernels"]["fwd"] if mode == "classic"
+                              else r[mode]["kernels"])["tile_offset"] for r in ranks],
+            "kernels": [r[mode]["kernels"] for r in ranks]}
+    out["allreduce"] = [r["allreduce"] for r in ranks]
+    return out
+
+
+def check_mesh_pipeline(ranks, classic_ate, where) -> dict:
+    """A multi-rank `SLAMPipeline(mesh=...)` run held: finite losses whose
+    last third averages below the first, the ATE within 1% of the classic
+    loop's over the same frames, every rank's final state bitwise rank 0's,
+    and one launch of each classic compositor per training step on every
+    rank."""
+    import numpy as np
+
+    from sags_tpu_torch.utils.traj import ate_rmse
+
+    got = ranks[0]["pipeline"]
+    losses = np.asarray(got["losses"])
+    third = max(1, len(losses) // 3)
+    first, last = float(losses[:third].mean()), float(losses[-third:].mean())
+    ate, _ = ate_rmse(got["poses"], got["poses_gt"], align=False)
+    assert np.isfinite(losses).all(), (where, losses)
+    assert last < first, (where, first, last)
+    assert abs(ate - classic_ate) <= 0.01 * classic_ate, (where, ate, classic_ate)
+    for r, res in enumerate(ranks[1:], 1):
+        assert_digests_equal(res["pipeline"]["state"], got["state"], f"{where} rank {r}")
+    for r, res in enumerate(ranks):
+        p = res["pipeline"]
+        for sym in MESH_COMPOSITORS["classic"]:
+            assert p["launches"][sym] == p["train_iters"], (where, r, p["launches"])
+    return {"ate_m": ate, "classic_ate_m_same_frames": classic_ate,
+            "loss_first_third": first, "loss_last_third": last,
+            "train_iters": got["train_iters"], "seconds": [r["pipeline"]["seconds"] for r in ranks],
+            "ms_per_frame": [r["pipeline"]["seconds"] * 1e3 / len(losses) for r in ranks]}
+
+
+def mesh_phase(device, frames, classic, pipes):
+    """Phase 13, the tile-sharded port: (a) `SLAMPipeline(mesh=make_mesh())`
+    on one NCCL rank in this process over the loop cell's first frames,
+    bitwise equal to `mesh=None`; (b) 2 and 3 gloo ranks on this card (3:
+    1280 tiles padded to 1281), each running MESH_STEPS classic and windowed
+    `slam_step`s from the slam and slam_windowed phases' states, configs
+    and newest keyframes (`check_mesh_steps`); (c) a 2-rank
+    `SLAMPipeline(mesh=...)` over the same frames (`check_mesh_pipeline`);
+    (d) with several cards, (b) and (c) over NCCL, one rank per card.
+    Returns each run's launch counts by kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sags_tpu_torch.parallel.mesh import make_mesh
+    from sags_tpu_torch.utils.traj import ate_rmse
+
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    frames = frames[:MESH_FRAMES]
+    gt = np.stack([f.pose for f in frames])
+    classic_ate, _ = ate_rmse(classic["poses"][:MESH_FRAMES], gt, align=False)
+    res, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="sags_mesh_") as root:
+        # (a) one rank: the slice is the whole grid, the collectives identities
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"file://{root}/rendezvous-one",
+                                rank=0, world_size=1)
+        try:
+            one = mesh_pipeline(device, frames,
+                                make_mesh(devices=None if device.type == "cuda" else ["cpu"]))
+        finally:
+            dist.destroy_process_group()
+        plain = mesh_pipeline(device, frames, None)
+        assert_digests_equal(one["state"], plain["state"], f"{backend} one rank")
+        assert np.array_equal(one["poses"], plain["poses"]) and one["losses"] == plain["losses"]
+        launches[f"{backend}_1_rank_pipeline"] = one["launches"]
+        res["one_rank"] = {"backend": backend, "bitwise": True,
+                           "seconds": one["seconds"], "unsharded_seconds": plain["seconds"],
+                           "launches": one["launches"]}
+
+        # (b), (c): the ranks start from the saved states, keyframes and frames
+        mesh_inputs(root, pipes, frames)
+        ref = {mode: mesh_steps(device, os.path.join(root, mode), None) for mode in MESH_MODES}
+        res["unsharded_ms_per_step"] = {m: float(np.median(ref[m]["step_ms"][1:]))
+                                        for m in MESH_MODES}
+        # gloo admits several ranks on one card (NCCL refuses them)
+        card = f"cuda:{torch.cuda.current_device()}" if device.type == "cuda" else "cpu"
+        runs = [("gloo", n, [card] * n, n == 2) for n in (2, 3)]
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        if cards >= 2:
+            runs.append(("nccl", cards, None, True))
+        else:
+            res["nccl_across_cards"] = f"skipped: {cards} card; NCCL runs one rank per card"
+        for backend, n, devices, pipeline in runs:
+            ranks, seconds = spawn_ranks(n, root, backend, devices, pipeline)
+            key = f"{backend}_{n}_ranks"
+            res[key] = check_mesh_steps(ranks, ref, key)
+            res[key]["seconds"] = seconds
+            launches[f"{key}_steps"] = [
+                {s: sum(r[m]["launches"][s] for m in MESH_MODES) for s in r["classic"]["launches"]}
+                for r in ranks]
+            if pipeline:
+                res[key]["pipeline"] = check_mesh_pipeline(ranks, classic_ate, key)
+                launches[f"{key}_pipeline"] = [r["pipeline"]["launches"] for r in ranks]
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "mesh", "frames": len(frames), "steps": MESH_STEPS, **res})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3487,8 +3854,11 @@ def main() -> int:
         kres.update(kernel_phase(device, capacities=(K_final,)))
     eres, eres_frame = eval_phase(device, pipe, frames, poses)
     n_frames = len(frames)
-    wlaunches, n_wframes, wloop = slam_windowed_phase(device, frames,
-                                                      dict(classic, poses=poses))
+    wlaunches, n_wframes, wloop, wpipe = slam_windowed_phase(device, frames,
+                                                             dict(classic, poses=poses))
+    mesh_launches = mesh_phase(device, frames, dict(classic, poses=poses),
+                               {"classic": pipe, "windowed": wpipe})
+    del wpipe
     _, kf_images, sem = semantic_phase(device, frames, dict(classic, poses=poses, pipe=pipe))
     sam_phase(device, kf_images, frames, pipe.cfg.semantics.num_classes)
     tracking_phase(device, frames, dict(classic, poses=poses, lm_log=pipe.lm_log))
@@ -3546,6 +3916,8 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r.get("library_ms"),
             "cli_launches": cli_launches[sym],
+            "mesh_launches": {k: [r[sym] for r in v] if isinstance(v, list) else v[sym]
+                              for k, v in mesh_launches.items()},
             "sources_launches": {k: v[sym] for k, v in sources_launches.items()},
             **({"empty_kernel_ms": r["empty_ms"],
                 "torch_full_ms": r["full_ms"], "semantic_loop_launches": sem["launches"][sym]}

@@ -32,6 +32,9 @@ the classic compositor, as in the JAX package. `ewa_impl`,
 variants; `scan_impl` and `window_prefetch` are accepted and have no effect
 (TPU formulations of the same arithmetic); `window_ablate` (a TPU timing
 diagnostic) raises.
+
+Under a mesh (`parallel/mesh.py`) both differentiable compositors run
+sharded over the ranks' tiles; see `rasterize`.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ from sags_tpu_torch.core.transforms import quat_normalize
 from sags_tpu_torch.ops import composite as comp
 from sags_tpu_torch.ops import windowed as win
 from sags_tpu_torch.ops.binning import cull_c2, fill_table, tile_qmin
+from sags_tpu_torch.parallel.mesh import (gather_tiles, replicated, shard_tiles,
+                                          tile_sharding)
 
 _G_HDR = comp.HDR
 
@@ -404,13 +409,29 @@ class _CompositeFn(torch.autograd.Function):
         return dG, None, None, None, None, None, None
 
 
+def _composite_sharded(G, table, counts, n_feat, tiles_x, cfg: RasterizeConfig, mesh):
+    """Multi-device compositing (`sags_tpu/ops/rasterize.py:650-691`): each
+    rank runs the fused forward and backward on its contiguous tile slice at
+    its tile offset (padded tiles: an empty table and counts 0), the slices
+    are all-gathered, and each rank's dG scatter is summed over the ranks.
+    `G` stays replicated."""
+    NT = table.shape[0]
+    _, lo, _ = tile_sharding(mesh, NT)
+    acc, T = _CompositeFn.apply(replicated(G, mesh), shard_tiles(table, mesh, -1),
+                                shard_tiles(counts, mesh), n_feat, tiles_x, cfg, lo)
+    return gather_tiles(acc, mesh, NT), gather_tiles(T, mesh, NT)
+
+
 def composite(table, counts, G, n_feat, tiles_x, tiles_y, cfg: RasterizeConfig,
-              tile_offset: int = 0):
-    """Front-to-back compositing over all tiles. Returns
+              mesh=None):
+    """Front-to-back compositing over all tiles, sharded over the tiles of
+    `mesh` when one is given. Returns
     (accum [NT, tile², n_feat], T_final [NT, tile²], px, py)."""
     px, py = comp.tile_pixel_coords(tiles_x * tiles_y, tiles_x, cfg.tile, 0, G.device)
-    accum, T_final = _CompositeFn.apply(G, table, counts, n_feat, tiles_x, cfg,
-                                        tile_offset)
+    if mesh is None:
+        accum, T_final = _CompositeFn.apply(G, table, counts, n_feat, tiles_x, cfg, 0)
+    else:
+        accum, T_final = _composite_sharded(G, table, counts, n_feat, tiles_x, cfg, mesh)
     return accum, T_final, px, py
 
 
@@ -863,24 +884,25 @@ class _CompositeWindowedFn(torch.autograd.Function):
     global sorted-row id (`table_rows`); under `windowed_bf16` or
     `pallas_backward=False`, the exact recompute through the classic
     compositor (forward at `cfg.chunk` for its own T_final, backward) over
-    the entries the window kept. Columns 32.. of dG_s are zero."""
+    the entries the window kept. Columns 32.. of dG_s are zero. The tiles
+    are `tile_offset`.. of the grid, in every route."""
 
     @staticmethod
     def forward(ctx, G_s, table_rows, table_local, counts, bases, dests, nblks, n_feat,
-                tiles_x, cfg):
+                tiles_x, cfg, tile_offset):
         bf16_obj = bool(cfg.windowed_bf16) and G_s.shape[1] >= win.BF16_CH
         acc, T = win.composite_windowed(
             G_s, table_local, counts, bases, dests, nblks, cfg.tile, tiles_x,
-            ewa_impl=cfg.ewa_impl, feat_prec=cfg.feature_precision, bf16_obj=bf16_obj,
-            **_windowed_kw(cfg))
+            tile_offset=tile_offset, ewa_impl=cfg.ewa_impl,
+            feat_prec=cfg.feature_precision, bf16_obj=bf16_obj, **_windowed_kw(cfg))
         ctx.save_for_backward(G_s, table_rows, table_local, counts, bases, dests, nblks, T)
-        ctx.meta = (n_feat, tiles_x, cfg, bf16_obj, acc.shape[-1])
+        ctx.meta = (n_feat, tiles_x, cfg, bf16_obj, acc.shape[-1], tile_offset)
         return acc[..., :n_feat], T
 
     @staticmethod
     def backward(ctx, d_acc, d_T):
         G_s, table_rows, table_local, counts, bases, dests, nblks, T = ctx.saved_tensors
-        n_feat, tiles_x, cfg, bf16_obj, CF = ctx.meta
+        n_feat, tiles_x, cfg, bf16_obj, CF, toff = ctx.meta
         NT, PIX = T.shape
         d_acc_full = torch.zeros((NT, PIX, CF), dtype=torch.float32, device=G_s.device)
         if d_acc is not None:
@@ -894,18 +916,40 @@ class _CompositeWindowedFn(torch.autograd.Function):
             G32 = G_s[:, :win.KERNEL_CH].contiguous()
             _, T_re = comp.composite_fused(G32, table, counts, cfg.tile, tiles_x,
                                            alpha_min=cfg.alpha_min,
-                                           t_min=cfg.transmittance_min, chunk=cfg.chunk)
+                                           t_min=cfg.transmittance_min, chunk=cfg.chunk,
+                                           tile_offset=toff)
             dGt = comp.composite_fused_bwd(G32, table, counts, d_acc_full, d_T, T_re,
                                            cfg.tile, tiles_x, alpha_min=cfg.alpha_min,
-                                           t_min=cfg.transmittance_min, chunk=cfg.chunk)
+                                           t_min=cfg.transmittance_min, chunk=cfg.chunk,
+                                           tile_offset=toff)
         else:
             table = table_rows
             dGt = win.composite_windowed_bwd(G_s, table_local, counts, bases, dests, nblks,
                                              d_acc_full, d_T, T, cfg.tile, tiles_x,
-                                             **_windowed_kw(cfg))
+                                             tile_offset=toff, **_windowed_kw(cfg))
         dG = comp.scatter_rows(dGt, table, P_all)
         dG_s = torch.cat([dG, dG.new_zeros((P_all, G_s.shape[1] - dG.shape[1]))], dim=1)
-        return dG_s, None, None, None, None, None, None, None, None, None
+        return dG_s, None, None, None, None, None, None, None, None, None, None
+
+
+def _composite_windowed_sharded(G_s, table_rows, table_local, counts, bases, dests,
+                                nblks, n_feat, tiles_x, cfg: RasterizeConfig, mesh):
+    """Multi-device windowed compositing (`sags_tpu/ops/rasterize.py:1465-1517`):
+    each rank runs the windowed kernels on its contiguous tile slice at its
+    tile offset. The anchor-sorted store `G_s` stays replicated (every
+    rank's spans index the one global store) and the per-tile plan is
+    sharded; padded tiles have counts 0, empty tables and no spans. Each
+    rank's dG_s scatter is summed over the ranks, before autograd folds the
+    slice-store copies back onto their parents."""
+    NT = table_rows.shape[0]
+    R = bases.numel() // NT
+    _, lo, _ = tile_sharding(mesh, NT)
+    b, d, n = (shard_tiles(x.reshape(NT, R), mesh).reshape(-1) for x in (bases, dests, nblks))
+    acc, T = _CompositeWindowedFn.apply(
+        replicated(G_s, mesh), shard_tiles(table_rows, mesh, -1),
+        shard_tiles(table_local, mesh, -1), shard_tiles(counts, mesh), b, d, n, n_feat,
+        tiles_x, cfg, lo)
+    return gather_tiles(acc, mesh, NT), gather_tiles(T, mesh, NT)
 
 
 class _CompositeWindowedSortedFn(torch.autograd.Function):
@@ -943,7 +987,7 @@ def _untile(x, tiles_x: int, tiles_y: int, tile: int, W: int, H: int):
 def rasterize(means3d, opacities, scales, quats, camera: Camera,
               cfg: RasterizeConfig = RasterizeConfig(), *, colors=None, shs=None,
               sh_degree: int = 0, obj_features=None, bg_color=None,
-              cov3d_precomp=None, active_mask=None, mean2d_offset=None,
+              cov3d_precomp=None, active_mask=None, mean2d_offset=None, mesh=None,
               fused: Optional[bool] = None,
               windowed: Optional[bool] = None) -> RenderOutput:
     """Render Gaussians (`sags_tpu.ops.rasterize`). `windowed=None` follows
@@ -960,7 +1004,14 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
     forward's VJP recomputes through XLA, so a training step would pay for
     both. Here the classic forward kernel has a backward kernel of its own,
     so the classic path launches `composite_fused` and `composite_fused_bwd`
-    on CUDA tensors whatever `fused` says."""
+    on CUDA tensors whatever `fused` says.
+
+    `mesh` (`parallel.mesh.make_mesh`) shards the compositor's tiles over its
+    ranks (`_composite_sharded`, `_composite_windowed_sharded`); everything
+    else runs replicated on every rank. Under a mesh `windowed_sort="kernel"`
+    renders through the host table, as the JAX package does
+    (`sags_tpu/ops/rasterize.py:1765`): that is the reference's behaviour
+    there, not a fallback."""
     P = means3d.shape[0]
     dev = means3d.device
     W, H = camera.width, camera.height
@@ -986,7 +1037,7 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
         and cfg.tile * cfg.tile >= 8
         # the windowed row layout is the SLAM feature set's: 16 obj channels
         and O == 16)
-    use_kernel_sort = (use_windowed and cfg.windowed_sort == "kernel"
+    use_kernel_sort = (use_windowed and cfg.windowed_sort == "kernel" and mesh is None
                        and not cfg.windowed_bf16 and cfg.window_blocks <= 16
                        and cfg.tile_capacity <= 16 * 128)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -1008,15 +1059,22 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
         (G_s, wtable, table_local, wcounts, bases, dests, nblks, n_binned, ov_rect,
          ov_tile, ov_win, ov_big) = _prepare_windowed(pre, obj_features, tiles_x,
                                                       tiles_y, cfg)
-        accum, T_final = _CompositeWindowedFn.apply(
-            G_s, wtable, table_local, wcounts, bases, dests, nblks, n_feat, tiles_x, cfg)
+        if mesh is None:
+            accum, T_final = _CompositeWindowedFn.apply(
+                G_s, wtable, table_local, wcounts, bases, dests, nblks, n_feat, tiles_x,
+                cfg, 0)
+        else:
+            accum, T_final = _composite_windowed_sharded(
+                G_s, wtable, table_local, wcounts, bases, dests, nblks, n_feat, tiles_x,
+                cfg, mesh)
         tile_peak = torch.max(wcounts)
         ov_tile_live = ov_tile  # as in the JAX package: no live/dead split
     else:
         table, counts, n_binned, ov_rect, ov_tile, seg = bin_gaussians(
             pre, tiles_x, tiles_y, cfg)
         G = _pack_gaussians(pre, obj_features)
-        accum, T_final, px, py = composite(table, counts, G, n_feat, tiles_x, tiles_y, cfg)
+        accum, T_final, px, py = composite(table, counts, G, n_feat, tiles_x, tiles_y, cfg,
+                                           mesh)
         # transmittance-aware overflow accounting (see the JAX package)
         saturated = torch.all(T_final.detach() < 10.0 * cfg.transmittance_min, dim=1)
         truncated = seg > cfg.tile_capacity

@@ -95,12 +95,14 @@ def _write_row(track: TrackState, row: torch.Tensor) -> TrackState:
 
 
 class FusedFrontend:
-    """The per-frame programs for one (cfg, H, W, sensor_frame) operating
-    point. `lm_log` collects (outer, inner) LM iterations per align."""
+    """The per-frame programs for one (cfg, H, W, sensor_frame, mesh)
+    operating point; every training step's compositor is sharded over
+    `mesh`. `lm_log` collects (outer, inner) LM iterations per align."""
 
     MODES = ("gicp", "vgicp", "gicp_map", "none")
 
-    def __init__(self, cfg: SLAMConfig, H: int, W: int, *, sensor_frame: bool):
+    def __init__(self, cfg: SLAMConfig, H: int, W: int, *, sensor_frame: bool,
+                 mesh=None):
         if cfg.tracking.backend not in self.MODES:
             raise NotImplementedError(
                 f"tracking backend {cfg.tracking.backend!r} has no fused front-end "
@@ -108,6 +110,7 @@ class FusedFrontend:
         self.cfg = cfg
         self.H, self.W = H, W
         self.sensor_frame = sensor_frame
+        self.mesh = mesh
         self.lm_log: List[tuple] = []
 
     # -- pieces ------------------------------------------------------------
@@ -178,7 +181,7 @@ class FusedFrontend:
 
     def _train_and_metrics(self, state, track, camera, image, objects):
         cfg = self.cfg
-        state, sm = slam_step_mod.slam_step(state, camera, image, objects, cfg)
+        state, sm = slam_step_mod.slam_step(state, camera, image, objects, cfg, self.mesh)
         f = lambda x: x.to(torch.float32).reshape(())
         row = torch.stack([
             f(sm.loss), f(sm.n_binned), f(sm.overflow_tile), f(sm.overflow_rect),

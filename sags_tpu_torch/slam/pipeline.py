@@ -32,7 +32,11 @@ anchored: `_map_anchored` flips when a frame's metrics row counts
 none after; `sags_tpu/slam/pipeline.py:634-642`), and is chosen on the host
 before each frame.
 
-Not ported yet (later slices): meshes.
+`SLAMPipeline(cfg, mesh=parallel.mesh.make_mesh())`, run on every rank of
+a `torchrun --nproc-per-node N` launch, shards each training step's
+compositor over the ranks' tiles (both front-ends, and across the capacity
+and budget rebuilds); everything else runs replicated, so every rank holds
+the same state. `evaluate` renders unsharded, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -127,10 +131,10 @@ class SLAMPipeline:
     def __init__(self, cfg: SLAMConfig, mask_generator=None, mesh=None,
                  point_budget: int = 4096, rng_seed: int = 0, device=None,
                  draws=None):
-        if mesh is not None:
-            raise NotImplementedError("multi-device meshes are not ported yet")
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if device is None and mesh is not None
+                                     else device)
         self.cfg = cfg
+        self.mesh = mesh
         self.point_budget = point_budget
         self.mask_generator = mask_generator
         self.state = slam_step_mod.init_state(cfg, rng_seed, device=self.device,
@@ -239,7 +243,7 @@ class SLAMPipeline:
         if self._fused is not None:
             self._fused = fused_mod.FusedFrontend(
                 self.cfg, self._fused.H, self._fused.W,
-                sensor_frame=self._fused.sensor_frame)
+                sensor_frame=self._fused.sensor_frame, mesh=self.mesh)
             self._fused.lm_log = self.lm_log
 
     def _maybe_grow_capacity(self, metrics: _HostMetrics) -> None:
@@ -485,7 +489,7 @@ class SLAMPipeline:
         """One training step on keyframe `kf`; its scalars come to the host
         in one packed fetch and drive the capacity adaptation."""
         self.state, metrics = slam_step_mod.slam_step(self.state, kf.camera, kf.image,
-                                                      kf.objects, self.cfg)
+                                                      kf.objects, self.cfg, self.mesh)
         vals = _pack_metrics(metrics).cpu().numpy()
         self.losses.append(float(vals[0]))
         self.train_iter += 1
@@ -536,7 +540,7 @@ class SLAMPipeline:
     def _fused_setup(self, df, frame: Frame) -> None:
         H, W = frame.image.shape[1:]
         self._fused = fused_mod.FusedFrontend(self.cfg, H, W,
-                                              sensor_frame=df.sensor_frame)
+                                              sensor_frame=df.sensor_frame, mesh=self.mesh)
         self._fused.lm_log = self.lm_log
         if self.track is None:
             self.track = fused_mod.init_track_state(

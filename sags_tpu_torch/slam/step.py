@@ -3,11 +3,15 @@ masked L1 + SSIM + semantic CE (+ cls3d KL every Nth step) → backward →
 per-group Adam → periodic prune.
 
 The step counter is a host integer, so the cls3d and prune decisions cost no
-device sync. The map buffers are updated in place.
+device sync. The map buffers are updated in place. A mesh
+(`parallel.mesh.make_mesh`) shards the render's compositor over its ranks'
+tiles; the rest of the step is replicated, and every rank ends it with the
+same state.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -66,7 +70,7 @@ def init_state(cfg: SLAMConfig, seed: int = 0, capacity: Optional[int] = None,
 
 
 def render_map(m: gm.GaussianMap, camera: Camera, cfg: SLAMConfig, bg_color=None,
-               training_stage: int = 0, windowed=None) -> rz.RenderOutput:
+               mesh=None, training_stage: int = 0, windowed=None) -> rz.RenderOutput:
     """`render_4` equivalent; `training_stage` divides the resolution by 2·stage."""
     if training_stage:
         d = 2 * training_stage
@@ -76,18 +80,19 @@ def render_map(m: gm.GaussianMap, camera: Camera, cfg: SLAMConfig, bg_color=None
     return rz.rasterize(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
                         gm.get_rotation(m), camera, cfg.raster, shs=gm.get_shs(m),
                         sh_degree=cfg.map.sh_degree, obj_features=m.obj_dc,
-                        bg_color=bg_color, active_mask=m.active, windowed=windowed)
+                        bg_color=bg_color, active_mask=m.active, mesh=mesh,
+                        windowed=windowed)
 
 
 def _loss_fn(params: gm.Params, clf: ClassifierParams, m: gm.GaussianMap,
              camera: Camera, gt_image, gt_objects, use_cls3d: bool, draws,
-             cfg: SLAMConfig):
+             cfg: SLAMConfig, mesh=None):
     m = gm.with_params(m, params)
     # `train_windowed` trains through the windowed render only with the
     # windowed backward kernel; `pallas_backward=False` pins the classic
     # path, as in the JAX package (`fused=False` disables its windowed path)
     windowed = bool(cfg.raster.train_windowed and cfg.raster.pallas_backward)
-    out = render_map(m, camera, cfg, windowed=windowed)
+    out = render_map(m, camera, cfg, mesh=mesh, windowed=windowed)
     _, l1 = l1_loss(out.color, gt_image)
     _, s = ssim(out.color, gt_image)
     loss_rgb = (1.0 - cfg.opt.lambda_dssim) * l1 + cfg.opt.lambda_dssim * (1.0 - s)
@@ -109,15 +114,16 @@ def _loss_fn(params: gm.Params, clf: ClassifierParams, m: gm.GaussianMap,
 
 
 def slam_step(state: SLAMState, camera: Camera, gt_image: torch.Tensor,
-              gt_objects: torch.Tensor, cfg: SLAMConfig) -> Tuple[SLAMState, StepMetrics]:
-    """One map-optimization iteration."""
+              gt_objects: torch.Tensor, cfg: SLAMConfig,
+              mesh=None) -> Tuple[SLAMState, StepMetrics]:
+    """One map-optimization iteration, its compositor sharded over `mesh`."""
     m = state.map
     use_cls3d = state.step % cfg.semantics.cls3d_interval == 0
     params = gm.Params(*(p.detach().requires_grad_(True) for p in gm.params_of(m)))
     clf = ClassifierParams(*(p.detach().requires_grad_(True) for p in state.classifier))
     with torch.enable_grad():
         loss, (loss_rgb, loss_obj, loss_obj_3d, out) = _loss_fn(
-            params, clf, m, camera, gt_image, gt_objects, use_cls3d, state.rng, cfg)
+            params, clf, m, camera, gt_image, gt_objects, use_cls3d, state.rng, cfg, mesh)
         grads = torch.autograd.grad(loss, tuple(params) + tuple(clf), allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, tuple(params) + tuple(clf))]
@@ -148,6 +154,12 @@ def slam_step(state: SLAMState, camera: Camera, gt_image: torch.Tensor,
         overflow_tile_live=out.overflow_tile_live,
     )
     return new_state, metrics
+
+
+def make_slam_step(cfg: SLAMConfig, mesh=None):
+    """`slam_step` with the config and mesh bound: fn(state, camera,
+    gt_image, gt_objects) → (state, metrics)."""
+    return functools.partial(slam_step, cfg=cfg, mesh=mesh)
 
 
 def add_frame_points(state: SLAMState, points, colors, mask, cfg: SLAMConfig,

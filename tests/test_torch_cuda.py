@@ -232,6 +232,67 @@ def test_composite_fwd_kernel_counts_chunks_and_offset(device, chunk, toff):
     assert not bool(live.all())
 
 
+def _row_rel_err(got, want):
+    scale = want.abs().amax(dim=(0, 2))
+    live = scale > 0
+    return float(((got - want).abs().amax(dim=(0, 2))[live] / scale[live]).max())
+
+
+@pytest.mark.parametrize("toff", [3, 7])
+def test_composite_bwd_kernel_at_a_tile_offset(device, toff):
+    """`composite_fused_bwd` on the tiles toff.. of the grid (a rank's slice
+    under a mesh) at that tile offset: 2e-4 relative per output row of the
+    plain version at the same offset, and different from the launch at
+    offset 0 (the offset moves the pixels)."""
+    K, chunk = 128, 32
+    gid_s, starts, G = _binned(device, K, chunk)
+    NT = TILES_X * TILES_Y
+    table = binning.fill_table(gid_s, starts, NT, K)[toff:].contiguous()
+    counts = torch.clamp(starts[1:] - starts[:-1], max=K).to(torch.int32)[toff:].contiguous()
+    kw = dict(chunk=chunk, tile_offset=toff)
+    acc, T = composite.composite_fused(G, table, counts, 16, TILES_X, **kw)
+    g = torch.Generator(device=device).manual_seed(5)
+    d_acc = torch.randn(acc.shape, generator=g, device=device)
+    d_T = torch.randn(T.shape, generator=g, device=device)
+    bargs = (G, table, counts, d_acc, d_T, T, 16, TILES_X)
+    before = composite.BWD.launches
+    dgt = composite.composite_fused_bwd(*bargs, **kw)
+    assert composite.BWD.launches == before + 1
+    assert _row_rel_err(dgt, composite.composite_fused_bwd_plain(*bargs, **kw)) <= 2e-4
+    assert not torch.equal(dgt, composite.composite_fused_bwd(*bargs, chunk=chunk))
+
+
+@pytest.mark.parametrize("toff", [3, 7])
+def test_windowed_kernels_at_a_tile_offset(device, toff):
+    """`composite_windowed` and `composite_windowed_bwd` on the tiles toff..
+    of the grid (work list and span plan cut as a mesh cuts them) at that
+    tile offset: the forward bitwise equal to its plain version at the same
+    offset, the backward to 2e-4 relative per output row, and the forward
+    different from the launch at offset 0."""
+    kw = dict(alpha_min=WIN_CFG.alpha_min, t_min=WIN_CFG.transmittance_min, chunk=128,
+              n_span=4)
+    G_s, _, tl, counts, bases, dests, nblks, *_ = _prepared(device, True)
+    NT = TILES_X * TILES_Y
+    tl, counts = tl[toff:].contiguous(), counts[toff:].contiguous()
+    b, d, n = (x.reshape(NT, 4)[toff:].reshape(-1).contiguous() for x in (bases, dests, nblks))
+    fargs = (G_s, tl, counts, b, d, n, 16, TILES_X)
+    before = windowed.WINDOWED.launches
+    acc, T = windowed.composite_windowed(*fargs, tile_offset=toff, **kw)
+    assert windowed.WINDOWED.launches == before + 1
+    acc_p, T_p = windowed.composite_windowed_plain(*fargs, tile_offset=toff, **kw)
+    assert torch.equal(acc, acc_p) and torch.equal(T, T_p)
+    assert not torch.equal(acc, windowed.composite_windowed(*fargs, **kw)[0])
+    g = torch.Generator(device=device).manual_seed(5)
+    d_acc = torch.randn(acc.shape, generator=g, device=device)
+    d_T = torch.randn(T.shape, generator=g, device=device)
+    bargs = (G_s, tl, counts, b, d, n, d_acc, d_T, T, 16, TILES_X)
+    before = windowed.BWD.launches
+    dgt = windowed.composite_windowed_bwd(*bargs, tile_offset=toff, **kw)
+    assert windowed.BWD.launches == before + 1
+    dgt_p = windowed.composite_windowed_bwd_plain(*bargs, tile_offset=toff, **kw)
+    assert _row_rel_err(dgt, dgt_p) <= 2e-4
+
+
 @pytest.mark.parametrize("shape", [(4, 16, 128), (3, 1, 128), (2, 8, 256), (5, 1, 2),
                                    (5, 1, 4), (3, 1, 8), (3, 1, 64), (3, 2, 128),
                                    (2, 4, 128), (2, 8, 128), (2, 32, 128), (2, 64, 128)])
