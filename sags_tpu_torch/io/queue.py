@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from sags_tpu_torch.io.datasets import Frame
+from sags_tpu_torch.utils.profiling import span
 
 
 class DeviceFrame(NamedTuple):
@@ -98,7 +99,7 @@ class FrameQueue:
         self._stop = False
         self._last_rx = time.monotonic()
         self._thread = threading.Thread(target=self._produce, args=(iter(frames),),
-                                        daemon=True)
+                                        daemon=True, name="frame-queue")
         self._thread.start()
 
     def _produce(self, it: Iterator[Frame]):
@@ -111,8 +112,9 @@ class FrameQueue:
                     break
                 self._waiting_source = False
                 self._last_rx = time.monotonic()
-                item = (stage_frame(f, self._point_budget, self._device,
-                                    scan_budget=self._scan_budget), f)
+                with span("queue.stage"):
+                    item = (stage_frame(f, self._point_budget, self._device,
+                                        scan_budget=self._scan_budget), f)
                 if not self._put_unless_stopped(item):
                     return
         except BaseException as e:  # re-raised on the consumer side
@@ -144,7 +146,8 @@ class FrameQueue:
         while True:
             try:
                 poll = 0.25 if (self._timeout_s is not None and not first) else None
-                item = self._q.get(timeout=poll)
+                with span("queue.wait"):
+                    item = self._q.get(timeout=poll)
             except queue.Empty:
                 if (self._waiting_source
                         and time.monotonic() - self._last_rx > self._timeout_s):

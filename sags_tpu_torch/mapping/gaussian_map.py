@@ -17,6 +17,7 @@ from sags_tpu_torch.core import sh as shlib
 from sags_tpu_torch.core.config import MapConfig, OptimizationConfig, expon_lr
 from sags_tpu_torch.core.transforms import quat_normalize, quat_to_rotmat
 from sags_tpu_torch.utils.adam import AdamState, adam_init, adam_update
+from sags_tpu_torch.utils.profiling import host_read
 
 
 class GaussianMap(NamedTuple):
@@ -348,7 +349,7 @@ def compact(m: GaussianMap, opt_state: Optional[AdamState] = None):
     """Gather active slots to the front (the reference's physical row removal
     + `_prune_optimizer`), carrying the Adam moments."""
     N = m.capacity
-    idx = torch.nonzero(m.active).reshape(-1)
+    idx = host_read(torch.nonzero, m.active).reshape(-1)
     n = idx.shape[0]
 
     def gather(buf):
@@ -360,7 +361,7 @@ def compact(m: GaussianMap, opt_state: Optional[AdamState] = None):
         **{f: gather(getattr(m, f)) for f in PARAM_FIELDS},
         active=torch.arange(N, device=m.active.device) < n,
         trackable=gather(m.trackable), keyframe_id=gather(m.keyframe_id),
-        count=torch.tensor(n, dtype=torch.int32, device=m.count.device),
+        count=host_read(torch.tensor, n, dtype=torch.int32, device=m.count.device),
         max_radii2d=gather(m.max_radii2d), xyz_grad_accum=gather(m.xyz_grad_accum),
         denom=gather(m.denom),
     )

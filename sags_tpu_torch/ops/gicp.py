@@ -10,7 +10,11 @@ Gauss-Newton, or Levenberg-Marquardt with the reference's accept/λ rules
 
 The JAX `lax.while_loop`s become Python loops: each Gauss-Newton iteration
 and each LM trial reads its convergence (and accept) flags on the host (one
-sync each).
+sync each), and so does each outer LM iteration's convergence test and each
+`robust_inv3` (whether a determinant vanished); the LM loop's two starting
+scalars are copied to the device: an LM align of `i` outer iterations and
+`n` trials syncs 2·i + n + 2 times (`utils/profiling.host_read` counts them
+while tracing is on).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from sags_tpu_torch.core.config import GICPConfig
 from sags_tpu_torch.core.transforms import rotmat_to_quat, se3_matrix, skew, so3_exp
 from sags_tpu_torch.ops.knn import knn
+from sags_tpu_torch.utils.profiling import host_read, span
 
 
 NEIGHBOR_OFFSETS = {
@@ -150,7 +155,8 @@ def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, k: int = 10,
         covs = torch.linalg.inv(C_inv / norm)
     else:
         if regularization == "plane":
-            vals = torch.tensor([1.0, 1.0, 1e-3], device=points.device).expand_as(sv)
+            vals = host_read(torch.tensor, [1.0, 1.0, 1e-3],
+                             device=points.device).expand_as(sv)
         elif regularization == "min_eig":
             vals = torch.clamp(sv, min=1e-3)
         elif regularization == "normalized_min_eig":
@@ -206,7 +212,7 @@ def robust_inv3(A: torch.Tensor) -> torch.Tensor:
                        torch.stack([c21, c22, c23], -1),
                        torch.stack([c31, c32, c33], -1)], -2)
     inv = adj * r[..., None, None]
-    if bool(ok.all()):
+    if host_read(bool, ok.all()):
         return inv
     evals, evecs = _eigh_batched(A)
     inv_evals = torch.where(torch.abs(evals) > 1e-12, 1.0 / evals, torch.zeros_like(evals))
@@ -453,8 +459,9 @@ def make_vgicp_linearizer(data: VGICPData, cfg: GICPConfig):
     """Each source point against the voxels at its own and the neighbour
     offsets' coordinates, weighted by √num_points (`fast_vgicp_impl.hpp`)."""
     vm = data.voxel_map
-    offsets = torch.tensor(neighbor_offsets(cfg.neighbor_search, cfg.neighbor_radius),
-                           dtype=torch.int32, device=data.source.device)  # [F,3]
+    offsets = host_read(torch.tensor,
+                        neighbor_offsets(cfg.neighbor_search, cfg.neighbor_radius),
+                        dtype=torch.int32, device=data.source.device)  # [F,3]
     F, Ns = offsets.shape[0], data.source.shape[0]
     mean_A = data.source[:, None].expand(Ns, F, 3).reshape(-1, 3)
 
@@ -528,19 +535,19 @@ def lsq_align(linearize, error_fn, init_T: torch.Tensor, cfg: GICPConfig,
         return torch.linalg.solve_ex(A, rhs)[0]
 
     if cfg.optimizer == "gn":
-        T, H, e = init_T, I6, torch.tensor(float("inf"), device=dev)
+        T, H, e = init_T, I6, host_read(torch.tensor, float("inf"), device=dev)
         i, converged = 0, False
         while i < cfg.max_iterations and not converged:
             H, b, e, _ = linearize(T)
             delta = delta_of(solve(H, -b))
             T = delta @ T
-            converged = bool(conv(delta))  # one sync
+            converged = host_read(bool, conv(delta))  # one sync
             i += 1
         return AlignResult(T, H, converged, i, e, 0)
 
     T = init_T
-    lam = torch.tensor(-1.0, device=dev)
-    H, e = I6, torch.tensor(float("inf"), device=dev)
+    lam = host_read(torch.tensor, -1.0, device=dev)
+    H, e = I6, host_read(torch.tensor, float("inf"), device=dev)
     i, converged, failed, n_lm = 0, False, False, 0
     while i < cfg.max_iterations and not converged and not failed:
         H, b, y0, corr = linearize(T)
@@ -551,13 +558,15 @@ def lsq_align(linearize, error_fn, init_T: torch.Tensor, cfg: GICPConfig,
         delta = torch.eye(4, device=dev)
         success = False
         for _ in range(cfg.lm_max_iterations):
-            d = solve(H + lam * I6, -b)
-            dl = delta_of(d)
-            xi = dl @ T
-            yi = error_fn(xi, corr)
-            rho = (y0 - yi) / torch.dot(d, lam * d - b)
-            accept_t = rho >= 0.0
-            flags = torch.stack([accept_t, conv(dl)]).tolist()  # one sync
+            with span("gicp.lm_trial"):
+                d = solve(H + lam * I6, -b)
+                dl = delta_of(d)
+                xi = dl @ T
+                yi = error_fn(xi, corr)
+                rho = (y0 - yi) / torch.dot(d, lam * d - b)
+                accept_t = rho >= 0.0
+                flags = host_read(torch.Tensor.tolist,
+                                  torch.stack([accept_t, conv(dl)]))  # one sync
             accept, dl_conv = bool(flags[0]), bool(flags[1])
             n_lm += 1
             delta = dl
@@ -572,7 +581,7 @@ def lsq_align(linearize, error_fn, init_T: torch.Tensor, cfg: GICPConfig,
                 success = True
                 break
         failed = not success
-        converged = bool(conv(delta))
+        converged = host_read(bool, conv(delta))
         i += 1
     return AlignResult(T, H, converged, i, e, n_lm)
 
@@ -580,10 +589,12 @@ def lsq_align(linearize, error_fn, init_T: torch.Tensor, cfg: GICPConfig,
 def gicp_align(source, target, source_mask, target_mask, init_T,
                cfg: GICPConfig = GICPConfig(), source_covs=None,
                target_covs=None) -> AlignResult:
-    data = GICPData(source, source_mask, _covs_or_estimate(source, source_mask, source_covs, cfg),
-                    target, target_mask, _covs_or_estimate(target, target_mask, target_covs, cfg))
-    lin, err = make_gicp_linearizer(data, cfg)
-    return lsq_align(lin, err, init_T, cfg)
+    with span("gicp.align"):
+        data = GICPData(
+            source, source_mask, _covs_or_estimate(source, source_mask, source_covs, cfg),
+            target, target_mask, _covs_or_estimate(target, target_mask, target_covs, cfg))
+        lin, err = make_gicp_linearizer(data, cfg)
+        return lsq_align(lin, err, init_T, cfg)
 
 
 def _covs_or_estimate(points, mask, covs, cfg: GICPConfig):
@@ -598,22 +609,25 @@ def gicp_align_st(source, target, source_mask, target_mask, init_T,
                   target_covs=None) -> AlignResult:
     """FastGICPSingleThread: correspondence reuse under the triangle bound
     (`make_gicp_st_linearizer`)."""
-    data = GICPData(source, source_mask, _covs_or_estimate(source, source_mask, source_covs, cfg),
-                    target, target_mask, _covs_or_estimate(target, target_mask, target_covs, cfg))
-    lin, err, carry0 = make_gicp_st_linearizer(data, cfg)
-    return lsq_align(lin, err, init_T, cfg, carry_init=carry0)
+    with span("gicp.align"):
+        data = GICPData(
+            source, source_mask, _covs_or_estimate(source, source_mask, source_covs, cfg),
+            target, target_mask, _covs_or_estimate(target, target_mask, target_covs, cfg))
+        lin, err, carry0 = make_gicp_st_linearizer(data, cfg)
+        return lsq_align(lin, err, init_T, cfg, carry_init=carry0)
 
 
 def vgicp_align(source, target, source_mask, target_mask, init_T,
                 cfg: GICPConfig = GICPConfig(), source_covs=None,
                 target_covs=None) -> AlignResult:
     """FastVGICP: the source against a Gaussian voxel map of the target."""
-    source_covs = _covs_or_estimate(source, source_mask, source_covs, cfg)
-    target_covs = _covs_or_estimate(target, target_mask, target_covs, cfg)
-    vm = build_voxel_map(target, target_covs, target_mask, cfg.voxel_resolution,
-                         cfg.max_voxels, mode=cfg.voxel_accumulation)
-    lin, err = make_vgicp_linearizer(VGICPData(source, source_mask, source_covs, vm), cfg)
-    return lsq_align(lin, err, init_T, cfg)
+    with span("gicp.align"):
+        source_covs = _covs_or_estimate(source, source_mask, source_covs, cfg)
+        target_covs = _covs_or_estimate(target, target_mask, target_covs, cfg)
+        vm = build_voxel_map(target, target_covs, target_mask, cfg.voxel_resolution,
+                             cfg.max_voxels, mode=cfg.voxel_accumulation)
+        lin, err = make_vgicp_linearizer(VGICPData(source, source_mask, source_covs, vm), cfg)
+        return lsq_align(lin, err, init_T, cfg)
 
 
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, resolution: float,

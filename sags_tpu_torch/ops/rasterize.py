@@ -51,6 +51,7 @@ from sags_tpu_torch.core.transforms import quat_normalize
 from sags_tpu_torch.ops import composite as comp
 from sags_tpu_torch.ops import windowed as win
 from sags_tpu_torch.ops.binning import cull_c2, fill_table, tile_qmin
+from sags_tpu_torch.utils.profiling import span
 from sags_tpu_torch.parallel.mesh import (gather_tiles, replicated, shard_tiles,
                                           tile_sharding)
 
@@ -331,11 +332,12 @@ def bin_gaussians(pre: Preprocessed, tiles_x: int, tiles_y: int, cfg: RasterizeC
     counts [NT] int32, n_binned, overflow_rect, overflow_tile, seg [NT])."""
     NT = tiles_x * tiles_y
     K = cfg.tile_capacity
-    gid_s, starts, overflow_rect = sort_pairs(pre, tiles_x, tiles_y, cfg)
-    seg = starts[1:] - starts[:-1]
-    overflow_tile = torch.sum(torch.clamp(seg - K, min=0)).to(torch.int32)
-    counts = torch.clamp(seg, max=K).to(torch.int32)
-    table = fill_table(gid_s, starts, NT, K)
+    with span("raster.bin", device=pre.mx.device):
+        gid_s, starts, overflow_rect = sort_pairs(pre, tiles_x, tiles_y, cfg)
+        seg = starts[1:] - starts[:-1]
+        overflow_tile = torch.sum(torch.clamp(seg - K, min=0)).to(torch.int32)
+        counts = torch.clamp(seg, max=K).to(torch.int32)
+        table = fill_table(gid_s, starts, NT, K)
     return table, counts, starts[NT], overflow_rect, overflow_tile, seg
 
 
@@ -396,16 +398,17 @@ class _CompositeFn(torch.autograd.Function):
         G, table, counts, T = ctx.saved_tensors
         n_feat, tiles_x, cfg, tile_offset, CF = ctx.meta
         NT, PIX = T.shape
-        d_acc_full = torch.zeros((NT, PIX, CF), dtype=torch.float32, device=G.device)
-        if d_acc is not None:
-            d_acc_full[..., :n_feat] = d_acc
-        if d_T is None:
-            d_T = torch.zeros_like(T)
-        dGt = comp.composite_fused_bwd(
-            G, table, counts, d_acc_full, d_T.contiguous(), T, cfg.tile, tiles_x,
-            alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min, chunk=cfg.chunk,
-            tile_offset=tile_offset)
-        dG = comp.scatter_rows(dGt, table, G.shape[0])
+        with span("raster.composite_bwd", device=G.device):
+            d_acc_full = torch.zeros((NT, PIX, CF), dtype=torch.float32, device=G.device)
+            if d_acc is not None:
+                d_acc_full[..., :n_feat] = d_acc
+            if d_T is None:
+                d_T = torch.zeros_like(T)
+            dGt = comp.composite_fused_bwd(
+                G, table, counts, d_acc_full, d_T.contiguous(), T, cfg.tile, tiles_x,
+                alpha_min=cfg.alpha_min, t_min=cfg.transmittance_min, chunk=cfg.chunk,
+                tile_offset=tile_offset)
+            dG = comp.scatter_rows(dGt, table, G.shape[0])
         return dG, None, None, None, None, None, None
 
 
@@ -901,6 +904,11 @@ class _CompositeWindowedFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_acc, d_T):
+        with span("raster.composite_bwd", device=ctx.saved_tensors[0].device):
+            return _CompositeWindowedFn._backward(ctx, d_acc, d_T)
+
+    @staticmethod
+    def _backward(ctx, d_acc, d_T):
         G_s, table_rows, table_local, counts, bases, dests, nblks, T = ctx.saved_tensors
         n_feat, tiles_x, cfg, bf16_obj, CF, toff = ctx.meta
         NT, PIX = T.shape
@@ -1023,10 +1031,11 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
         bg_color = torch.zeros(3, dtype=means3d.dtype, device=dev)
     O = obj_features.shape[-1]
 
-    pre = preprocess(means3d, opacities, scales, quats, camera, cfg,
-                     colors=colors, shs=shs, sh_degree=sh_degree,
-                     cov3d_precomp=cov3d_precomp, active_mask=active_mask,
-                     mean2d_offset=mean2d_offset)
+    with span("raster.preprocess"):
+        pre = preprocess(means3d, opacities, scales, quats, camera, cfg,
+                         colors=colors, shs=shs, sh_degree=sh_degree,
+                         cov3d_precomp=cov3d_precomp, active_mask=active_mask,
+                         mean2d_offset=mean2d_offset)
     n_feat = 3 + O + 4
     R = int(round(cfg.max_tiles_per_gaussian ** 0.5))
     use_windowed = bool(
@@ -1046,35 +1055,40 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
     if use_windowed:
         _check_windowed_options(cfg)
     if use_kernel_sort:
-        (G_s, bases, dests, nblks, sstarts, sends, ov_rect, ov_win,
-         ov_big) = _prepare_windowed(pre, obj_features, tiles_x, tiles_y, cfg,
-                                     build_table=False)
-        accum, T_final, nv = _CompositeWindowedSortedFn.apply(
-            G_s, bases, dests, nblks, sstarts, sends, n_feat, tiles_x, cfg)
+        with span("raster.prepare_windowed"):
+            (G_s, bases, dests, nblks, sstarts, sends, ov_rect, ov_win,
+             ov_big) = _prepare_windowed(pre, obj_features, tiles_x, tiles_y, cfg,
+                                         build_table=False)
+        with span("raster.composite", device=dev):
+            accum, T_final, nv = _CompositeWindowedSortedFn.apply(
+                G_s, bases, dests, nblks, sstarts, sends, n_feat, tiles_x, cfg)
         ov_tile = torch.sum(torch.clamp(nv - cfg.tile_capacity, min=0))
         n_binned = torch.sum(nv)
         tile_peak = torch.max(nv)  # the unclamped need
         ov_tile_live = ov_tile  # render path: no live/dead split
     elif use_windowed:
-        (G_s, wtable, table_local, wcounts, bases, dests, nblks, n_binned, ov_rect,
-         ov_tile, ov_win, ov_big) = _prepare_windowed(pre, obj_features, tiles_x,
-                                                      tiles_y, cfg)
-        if mesh is None:
-            accum, T_final = _CompositeWindowedFn.apply(
-                G_s, wtable, table_local, wcounts, bases, dests, nblks, n_feat, tiles_x,
-                cfg, 0)
-        else:
-            accum, T_final = _composite_windowed_sharded(
-                G_s, wtable, table_local, wcounts, bases, dests, nblks, n_feat, tiles_x,
-                cfg, mesh)
+        with span("raster.prepare_windowed"):
+            (G_s, wtable, table_local, wcounts, bases, dests, nblks, n_binned, ov_rect,
+             ov_tile, ov_win, ov_big) = _prepare_windowed(pre, obj_features, tiles_x,
+                                                          tiles_y, cfg)
+        with span("raster.composite", device=dev):
+            if mesh is None:
+                accum, T_final = _CompositeWindowedFn.apply(
+                    G_s, wtable, table_local, wcounts, bases, dests, nblks, n_feat,
+                    tiles_x, cfg, 0)
+            else:
+                accum, T_final = _composite_windowed_sharded(
+                    G_s, wtable, table_local, wcounts, bases, dests, nblks, n_feat,
+                    tiles_x, cfg, mesh)
         tile_peak = torch.max(wcounts)
         ov_tile_live = ov_tile  # as in the JAX package: no live/dead split
     else:
         table, counts, n_binned, ov_rect, ov_tile, seg = bin_gaussians(
             pre, tiles_x, tiles_y, cfg)
-        G = _pack_gaussians(pre, obj_features)
-        accum, T_final, px, py = composite(table, counts, G, n_feat, tiles_x, tiles_y, cfg,
-                                           mesh)
+        with span("raster.composite", device=dev):
+            G = _pack_gaussians(pre, obj_features)
+            accum, T_final, px, py = composite(table, counts, G, n_feat, tiles_x, tiles_y,
+                                               cfg, mesh)
         # transmittance-aware overflow accounting (see the JAX package)
         saturated = torch.all(T_final.detach() < 10.0 * cfg.transmittance_min, dim=1)
         truncated = seg > cfg.tile_capacity

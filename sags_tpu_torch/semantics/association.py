@@ -27,6 +27,8 @@ from typing import Dict, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from sags_tpu_torch.utils.profiling import host_read
+
 
 def project_points_pinhole(
     points: np.ndarray,  # [N,3] world
@@ -216,7 +218,7 @@ class DeviceInstanceAssociator:
         votes, curr = _project_vote(
             xyz, active, self._prev_labels, mask, pose[:3, :3], pose[:3, 3],
             float(fx), float(fy), float(cx), float(cy), self.L, self.lidar_axes, W, H)
-        votes_h = votes.cpu().numpy()  # the ONE O(L²) fetch
+        votes_h = host_read(torch.Tensor.cpu, votes).numpy()  # the ONE O(L²) fetch
         mapping = mapping_from_votes(votes_h, self.threshold)
         lut = np.arange(self.L, dtype=np.int32)
         for cv, pv in mapping.items():

@@ -26,6 +26,7 @@ from sags_tpu_torch.core.transforms import (LIDAR_TO_CAM, quat_to_rotmat, rotmat
 from sags_tpu_torch.mapping import gaussian_map as gm
 from sags_tpu_torch.ops import gicp as gicp_ops
 from sags_tpu_torch.slam import step as slam_step_mod
+from sags_tpu_torch.utils.profiling import span
 
 # metrics ring-buffer columns
 MET_LOSS = 0
@@ -121,53 +122,56 @@ class FusedFrontend:
         scan-to-map align solves the absolute pose from the constant-velocity
         prediction. Covariances are estimated once per scan and reused as the
         next frame's target."""
-        cfg = self.cfg
-        mode = cfg.tracking.backend
-        if mode == "none":
-            return (pose_in, track.prev_scan, track.prev_mask, track.prev_covs,
-                    track.prev_delta)
-        covs = _estimate_covs(scan, smask, cfg).covs
-        if first:
-            return track.T, scan, smask, covs, track.prev_delta
-        if mode == "gicp_map" and anchored:
-            tcfg = cfg.tracking
-            tgt, tcov, tmask, _ = gm.trackable_subset(state.map, tcfg.opacity_threshold,
-                                                      tcfg.max_points)
-            # part of each scan is new geometry with no map counterpart yet:
-            # gate the correspondences so it does not drag the solve
-            gcfg = dataclasses.replace(cfg.gicp, corr_dist_threshold=tcfg.map_corr_threshold)
-            init = track.T @ track.prev_delta  # constant-velocity warm start
-            res = gicp_ops.gicp_align(scan, tgt, smask, tmask, init, gcfg, source_covs=covs,
-                                      target_covs=tcov)
+        with span("track", device=track.T.device):
+            cfg = self.cfg
+            mode = cfg.tracking.backend
+            if mode == "none":
+                return (pose_in, track.prev_scan, track.prev_mask, track.prev_covs,
+                        track.prev_delta)
+            with span("track.covariances"):
+                covs = _estimate_covs(scan, smask, cfg).covs
+            if first:
+                return track.T, scan, smask, covs, track.prev_delta
+            if mode == "gicp_map" and anchored:
+                tcfg = cfg.tracking
+                tgt, tcov, tmask, _ = gm.trackable_subset(state.map, tcfg.opacity_threshold,
+                                                          tcfg.max_points)
+                # part of each scan is new geometry with no map counterpart yet:
+                # gate the correspondences so it does not drag the solve
+                gcfg = dataclasses.replace(cfg.gicp, corr_dist_threshold=tcfg.map_corr_threshold)
+                init = track.T @ track.prev_delta  # constant-velocity warm start
+                res = gicp_ops.gicp_align(scan, tgt, smask, tmask, init, gcfg, source_covs=covs,
+                                          target_covs=tcov)
+                self.lm_log.append((res.iterations, res.lm_iterations))
+                # a solve that lands far from the prediction failed (thin or
+                # ambiguous target): keep the prediction, with no host sync
+                jump = torch.linalg.vector_norm(res.T[:3, 3] - init[:3, 3])
+                T_new = torch.where(jump <= tcfg.max_jump, res.T, init)
+                # Project the rotation back onto SO(3). The next warm start is
+                # T·(Tᵀ-inverse(T_prev)·T): without this, float32 rounding of
+                # RRᵀ = I grows ~2.4× a frame through that loop (1e-7 → 5e-2 in
+                # 16 frames, then the solve fails), as it does in the JAX package
+                T_new = se3_matrix(quat_to_rotmat(rotmat_to_quat(T_new[:3, :3])), T_new[:3, 3])
+                return T_new, scan, smask, covs, se3_inverse(track.T) @ T_new
+            align = gicp_ops.vgicp_align if mode == "vgicp" else gicp_ops.gicp_align
+            res = align(scan, track.prev_scan, smask, track.prev_mask, track.prev_delta,
+                        cfg.gicp, source_covs=covs, target_covs=track.prev_covs)
             self.lm_log.append((res.iterations, res.lm_iterations))
-            # a solve that lands far from the prediction failed (thin or
-            # ambiguous target): keep the prediction, with no host sync
-            jump = torch.linalg.vector_norm(res.T[:3, 3] - init[:3, 3])
-            T_new = torch.where(jump <= tcfg.max_jump, res.T, init)
-            # Project the rotation back onto SO(3). The next warm start is
-            # T·(Tᵀ-inverse(T_prev)·T): without this, float32 rounding of
-            # RRᵀ = I grows ~2.4× a frame through that loop (1e-7 → 5e-2 in
-            # 16 frames, then the solve fails), as it does in the JAX package
-            T_new = se3_matrix(quat_to_rotmat(rotmat_to_quat(T_new[:3, :3])), T_new[:3, 3])
-            return T_new, scan, smask, covs, se3_inverse(track.T) @ T_new
-        align = gicp_ops.vgicp_align if mode == "vgicp" else gicp_ops.gicp_align
-        res = align(scan, track.prev_scan, smask, track.prev_mask, track.prev_delta,
-                    cfg.gicp, source_covs=covs, target_covs=track.prev_covs)
-        self.lm_log.append((res.iterations, res.lm_iterations))
-        return track.T @ res.T, scan, smask, covs, res.T
+            return track.T @ res.T, scan, smask, covs, res.T
 
     def _add(self, state, T, points, colors, pmask, kf_id: int):
-        cfg = self.cfg
-        if self.sensor_frame:
-            points = points @ T[:3, :3].T + T[:3, 3]
-        quats = scales = None
-        if cfg.map.surfel_init and cfg.tracking.backend != "none":
-            pc = _estimate_covs(points, pmask, cfg)
-            quats, scales = pc.quats, pc.scales
-        state, _ = slam_step_mod.add_frame_points(
-            state, points, colors, pmask, cfg, quats=quats, scales=scales,
-            keyframe_id=kf_id)
-        return state
+        with span("map.add", device=T.device):
+            cfg = self.cfg
+            if self.sensor_frame:
+                points = points @ T[:3, :3].T + T[:3, 3]
+            quats = scales = None
+            if cfg.map.surfel_init and cfg.tracking.backend != "none":
+                pc = _estimate_covs(points, pmask, cfg)
+                quats, scales = pc.quats, pc.scales
+            state, _ = slam_step_mod.add_frame_points(
+                state, points, colors, pmask, cfg, quats=quats, scales=scales,
+                keyframe_id=kf_id)
+            return state
 
     def _track_add(self, state, track, scan, smask, points, colors, pmask,
                    pose_in, anchored: bool, first: bool):

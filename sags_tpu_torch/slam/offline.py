@@ -38,6 +38,7 @@ from sags_tpu_torch.slam.pipeline import camera_for
 from sags_tpu_torch.utils.adam import AdamState
 from sags_tpu_torch.utils.draws import TorchDraws
 from sags_tpu_torch.utils.losses import rgb_loss
+from sags_tpu_torch.utils.profiling import span
 
 
 class OfflineState(NamedTuple):
@@ -72,35 +73,45 @@ def train_step(state: OfflineState, camera: Camera, gt_image: torch.Tensor,
                cfg: SLAMConfig):
     """One photometric iteration with densification-stat accumulation.
     Returns (state, loss as a 0-dim device tensor)."""
+    with span("train", device=gt_image.device, unit=state.step):
+        return _train_step(state, camera, gt_image, cfg)
+
+
+def _train_step(state: OfflineState, camera: Camera, gt_image: torch.Tensor,
+                cfg: SLAMConfig):
     m = state.map
     params = gm.Params(*(p.detach().requires_grad_(True) for p in gm.params_of(m)))
     probe = torch.zeros((m.capacity, 2), dtype=torch.float32, device=m.xyz.device,
                         requires_grad=True)
     with torch.enable_grad():
-        mm = gm.with_params(m, params)
-        out = rz.rasterize(mm.xyz, gm.get_opacity(mm), gm.get_scaling(mm),
-                           gm.get_rotation(mm), camera, cfg.raster, shs=gm.get_shs(mm),
-                           sh_degree=cfg.map.sh_degree, active_mask=mm.active,
-                           mean2d_offset=probe, fused=False)
-        loss = rgb_loss(out.color, gt_image, cfg.opt.lambda_dssim)
-        grads = torch.autograd.grad(loss, tuple(params) + (probe,), allow_unused=True)
+        with span("step.forward"):
+            mm = gm.with_params(m, params)
+            out = rz.rasterize(mm.xyz, gm.get_opacity(mm), gm.get_scaling(mm),
+                               gm.get_rotation(mm), camera, cfg.raster, shs=gm.get_shs(mm),
+                               sh_degree=cfg.map.sh_degree, active_mask=mm.active,
+                               mean2d_offset=probe, fused=False)
+            loss = rgb_loss(out.color, gt_image, cfg.opt.lambda_dssim)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, tuple(params) + (probe,), allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, tuple(params) + (probe,))]
     gmap, gprobe = gm.Params(*grads[:7]), grads[7]
-    updates, opt_state = gm.optimizer_update(cfg.opt, gmap, state.opt_state, state.step,
-                                             cfg.scene_extent)
-    new_params = gm.apply_updates(gm.params_of(m), updates, m.active)
-    m = gm.with_params(m, gm.Params(*(p.detach() for p in new_params)))
+    with span("step.adam", device=gt_image.device):
+        updates, opt_state = gm.optimizer_update(cfg.opt, gmap, state.opt_state, state.step,
+                                                 cfg.scene_extent)
+        new_params = gm.apply_updates(gm.params_of(m), updates, m.active)
+        m = gm.with_params(m, gm.Params(*(p.detach() for p in new_params)))
     m = gm.add_densification_stats(m, gprobe, out.radii)
     return OfflineState(m, opt_state, state.step + 1, state.draws), loss.detach()
 
 
 def densify_event(state: OfflineState, cfg: SLAMConfig) -> OfflineState:
     """Clone/split by the gradient threshold, then the opacity prune."""
-    m, _ = gm.densify_and_clone_split(
-        state.map, cfg.opt.densify_grad_threshold, cfg.scene_extent, state.draws,
-        percent_dense=cfg.opt.percent_dense)
-    m = gm.prune_large_and_transparent(m, cfg.map.prune_min_opacity, None)
+    with span("offline.densify"):
+        m, _ = gm.densify_and_clone_split(
+            state.map, cfg.opt.densify_grad_threshold, cfg.scene_extent, state.draws,
+            percent_dense=cfg.opt.percent_dense)
+        m = gm.prune_large_and_transparent(m, cfg.map.prune_min_opacity, None)
     return state._replace(map=m)
 
 

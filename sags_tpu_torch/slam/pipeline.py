@@ -62,6 +62,7 @@ from sags_tpu_torch.ops import rasterize as rz
 from sags_tpu_torch.semantics.association import DeviceInstanceAssociator
 from sags_tpu_torch.slam import fused as fused_mod
 from sags_tpu_torch.slam import step as slam_step_mod
+from sags_tpu_torch.utils.profiling import host_read, span
 
 
 @dataclasses.dataclass
@@ -179,18 +180,19 @@ class SLAMPipeline:
         """Grow by doubling before an add could hit capacity; compact first
         when pruned holes free enough room."""
         if self._count_ub is None:
-            self._count_ub = int(self.state.map.count)
+            self._count_ub = host_read(int, self.state.map.count)
         cap = self.state.map.capacity
         if self._count_ub + incoming <= cap:
             self._count_ub += incoming
             return
-        self._count_ub = int(self.state.map.count)
+        self._count_ub = host_read(int, self.state.map.count)
         if self._count_ub + incoming <= cap:
             self._count_ub += incoming
             return
-        n_act = int(gm.n_active(self.state.map))
+        n_act = host_read(int, gm.n_active(self.state.map))
         if cap - n_act >= max(incoming, cap // 4):
-            new_map, new_opt = gm.compact(self.state.map, self.state.opt_state)
+            with span("map.grow"):
+                new_map, new_opt = gm.compact(self.state.map, self.state.opt_state)
             self.state = self.state._replace(map=new_map, opt_state=new_opt)
             self._count_ub = n_act
             if self._count_ub + incoming <= cap:
@@ -203,7 +205,8 @@ class SLAMPipeline:
         self._count_ub += incoming
         if new_cap == cap:
             return
-        new_map, new_opt = gm.grow(self.state.map, new_cap, self.state.opt_state)
+        with span("map.grow"):
+            new_map, new_opt = gm.grow(self.state.map, new_cap, self.state.opt_state)
         self.state = self.state._replace(map=new_map, opt_state=new_opt)
 
     def _camera_for(self, frame: Frame, pose: np.ndarray) -> Camera:
@@ -221,7 +224,7 @@ class SLAMPipeline:
             occ = rz.windowed_occupancy(m.xyz, gm.get_opacity(m), gm.get_scaling(m),
                                         gm.get_rotation(m), self.keyframes[-1].camera,
                                         r, active_mask=m.active)
-        occ = {k: v.cpu().numpy() for k, v in occ.items()}
+        occ = {k: host_read(torch.Tensor.cpu, v).numpy() for k, v in occ.items()}
         derived = rz.derive_windowed_budgets(r, occ, m.capacity, margin=1.2)
         out = {
             "windowed_store_fracs": derived.windowed_store_fracs,
@@ -245,6 +248,13 @@ class SLAMPipeline:
                 self.cfg, self._fused.H, self._fused.W,
                 sensor_frame=self._fused.sensor_frame, mesh=self.mesh)
             self._fused.lm_log = self.lm_log
+
+    def _adapt(self, r, **kw) -> None:
+        """Take the raster caps `kw` over `r` and rebuild the front-end at
+        them."""
+        with span("capacity.adapt"):
+            self.cfg = self.cfg.replace(raster=dataclasses.replace(r, **kw))
+            self._rebuild_frontend()
 
     def _maybe_grow_capacity(self, metrics: _HostMetrics) -> None:
         """Overflow-adaptive render capacities: three strikes in a row grow
@@ -288,10 +298,8 @@ class SLAMPipeline:
                     if r.windowed_big_frac < 1.0:
                         kw["windowed_big_frac"] = min(r.windowed_big_frac * 2, 1.0)
         self._overflow_strikes = 0
-        if not kw:
-            return
-        self.cfg = self.cfg.replace(raster=dataclasses.replace(r, **kw))
-        self._rebuild_frontend()
+        if kw:
+            self._adapt(r, **kw)
 
     def _maybe_shrink_capacity(self, peak: int, overflow_free: bool,
                                units: int = 1) -> None:
@@ -306,8 +314,7 @@ class SLAMPipeline:
         if self._quiet_shrink < 4 * max(self.cfg.metrics_interval, 1):
             return
         self._quiet_shrink = 0
-        self.cfg = self.cfg.replace(raster=dataclasses.replace(r, tile_capacity=target))
-        self._rebuild_frontend()
+        self._adapt(r, tile_capacity=target)
 
     def _make_objects(self, frame: Frame, pose: torch.Tensor) -> torch.Tensor:
         """The mask generator's label map of the frame, its IDs associated
@@ -335,8 +342,9 @@ class SLAMPipeline:
 
     def _scan_covs(self, scan, mask) -> torch.Tensor:
         g = self.cfg.gicp
-        return gicp_ops.estimate_covariances(scan, mask, g.k_correspondences,
-                                             g.knn_max_distance, g.regularization).covs
+        with span("track.covariances"):
+            return gicp_ops.estimate_covariances(scan, mask, g.k_correspondences,
+                                                 g.knn_max_distance, g.regularization).covs
 
     def _align(self, align, *args, **kw):
         res = align(*args, **kw)
@@ -400,7 +408,7 @@ class SLAMPipeline:
         tcfg = self.cfg.tracking
         tgt, tcov, tmask, n_sel = gm.trackable_subset(self.state.map, tcfg.opacity_threshold,
                                                       tcfg.max_points)
-        if not self._map_anchored and int(n_sel) >= tcfg.anchor_min_points:
+        if not self._map_anchored and host_read(int, n_sel) >= tcfg.anchor_min_points:
             self._map_anchored = True
             self.anchored_at = self._n_frames
         covs_d = self._scan_covs(scan_d, msk_d)
@@ -459,7 +467,7 @@ class SLAMPipeline:
                            torch.full((3,), 1e-4, device=dev), torch.full((9,), 1e-8, device=dev)])
             self._esikf = self._esikf._replace(P=self._esikf.P + torch.diag(q))
         vm = esikf.surfel_map_voxels(self._track_map)
-        if not self._surfels_live and int(vm.n_voxels) > 0:
+        if not self._surfels_live and host_read(int, vm.n_voxels) > 0:
             self._surfels_live = True  # the voxel count only grows
         if self._surfels_live:
             out = esikf.scan_update(self._esikf, scan_d, msk_d, vm,
@@ -490,7 +498,7 @@ class SLAMPipeline:
         in one packed fetch and drive the capacity adaptation."""
         self.state, metrics = slam_step_mod.slam_step(self.state, kf.camera, kf.image,
                                                       kf.objects, self.cfg, self.mesh)
-        vals = _pack_metrics(metrics).cpu().numpy()
+        vals = host_read(torch.Tensor.cpu, _pack_metrics(metrics)).numpy()
         self.losses.append(float(vals[0]))
         self.train_iter += 1
         overflow = [int(vals[i]) for i in (2, 3, 4, 5)]
@@ -509,14 +517,16 @@ class SLAMPipeline:
         scan at the estimated pose and grow the map, then train on a new
         keyframe or a stored one. Returns the device pose."""
         cfg = self.cfg
-        pose = self._track(frame, df)
+        with span("track", device=self.device):
+            pose = self._track(frame, df)
         self._n_frames += 1
         pts = df.points
         if df.sensor_frame:
             pts = pts @ pose[:3, :3].T + pose[:3, 3]
         self._maybe_grow_map(self.point_budget)
-        self.state, _ = slam_step_mod.add_frame_points(self.state, pts, df.colors, df.mask,
-                                                       cfg, keyframe_id=frame_idx)
+        with span("map.add", device=self.device):
+            self.state, _ = slam_step_mod.add_frame_points(self.state, pts, df.colors,
+                                                           df.mask, cfg, keyframe_id=frame_idx)
         if frame_idx % cfg.keyframes.keyframe_freq == 0:
             H, W = frame.image.shape[1:]
             if self.mask_generator is not None:
@@ -607,7 +617,8 @@ class SLAMPipeline:
             # the anchoring probe: this frame's trackable count, one scalar
             # fetch a frame until the map anchors, then never again
             M = self.track.metrics.shape[0]
-            n_sel = int(self.track.metrics[(self._host_mi - 1) % M, fused_mod.MET_N_TRACKABLE])
+            n_sel = host_read(int, self.track.metrics[(self._host_mi - 1) % M,
+                                                       fused_mod.MET_N_TRACKABLE])
             if n_sel >= cfg.tracking.anchor_min_points:
                 self._map_anchored = True
                 self.anchored_at = self._n_frames
@@ -639,12 +650,16 @@ class SLAMPipeline:
         k = end_mi - self._drained_mi
         if k <= 0:
             return
+        with span("metrics.drain"):
+            self._drain_rows(k, end_mi, snapshot)
+
+    def _drain_rows(self, k: int, end_mi: int, snapshot) -> None:
         if snapshot is None:
-            buf = self.track.metrics.cpu().numpy()
+            buf = host_read(torch.Tensor.cpu, self.track.metrics).numpy()
         else:
             host, ev = snapshot
             if ev is not None:
-                ev.synchronize()
+                host_read(ev.synchronize)
             buf = host.numpy()
         M = buf.shape[0]
         if k > M:
@@ -678,7 +693,10 @@ class SLAMPipeline:
 
     # ------------------------------------------------------------------
     def run(self, frames: Iterable[Frame], post_train: Optional[int] = None) -> PipelineResult:
-        """Consume a frame stream, then post-train on random keyframes."""
+        """Consume a frame stream, then post-train on random keyframes.
+        `frame_times` are seconds from one frame's completion on the card
+        to the next's (CUDA events, the first from the call; read after the
+        run's last sync), on the CPU each frame's host seconds."""
         cfg = self.cfg
         use_fused = self._use_fused
         poses_est, poses_gt = [], []
@@ -688,13 +706,22 @@ class SLAMPipeline:
                        timeout_s=cfg.timeout_s, scan_budget=scan_budget)
         frame_fn = self._frame_fused if use_fused else self._frame_modules
         frame_times: List[float] = []
+        stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        done = [torch.cuda.Event(enable_timing=True)] if stream is not None else []
+        if done:
+            done[0].record(stream)
         try:
             for frame_idx, (df, frame) in enumerate(q):
                 t_frame = time.perf_counter()
-                poses_est.append(frame_fn(df, frame, frame_idx))
+                with span("frame", device=self.device, unit=self._n_frames):
+                    poses_est.append(frame_fn(df, frame, frame_idx))
                 poses_gt.append(np.full((4, 4), np.nan, np.float32) if frame.pose is None
                                 else np.asarray(frame.pose))
-                frame_times.append(time.perf_counter() - t_frame)
+                if stream is None:
+                    frame_times.append(time.perf_counter() - t_frame)
+                else:
+                    done.append(torch.cuda.Event(enable_timing=True))
+                    done[-1].record(stream)
         finally:
             q.close()
         n_post = cfg.post_train_iters if post_train is None else post_train
@@ -709,8 +736,11 @@ class SLAMPipeline:
         if use_fused:
             self._drain_metrics()
             self._met_snaps.clear()
-        poses_np = (torch.stack(poses_est).cpu().numpy() if poses_est
+        poses_np = (host_read(torch.Tensor.cpu, torch.stack(poses_est)).numpy() if poses_est
                     else np.zeros((0, 4, 4)))
+        if len(done) > 1:
+            host_read(done[-1].synchronize)
+            frame_times = [a.elapsed_time(b) * 1e-3 for a, b in zip(done, done[1:])]
         return PipelineResult(
             poses_est=poses_np.astype(np.float32),
             poses_gt=np.stack(poses_gt) if poses_gt else np.zeros((0, 4, 4)),
@@ -750,9 +780,9 @@ class SLAMPipeline:
                 out = slam_step_mod.render_map(self.state.map, cam, cfg)
             pred = out.color
             gt = torch.as_tensor(np.asarray(frame.image), device=pred.device)
-            counters = torch.stack([out.overflow_tile, out.overflow_rect,
-                                    out.overflow_window, out.overflow_big,
-                                    out.n_binned]).cpu().tolist()
+            counters = host_read(torch.Tensor.tolist, torch.stack([
+                out.overflow_tile, out.overflow_rect, out.overflow_window,
+                out.overflow_big, out.n_binned]))
             s = {"psnr": eval_metrics.psnr(pred, gt),
                  "ssim": eval_metrics.ssim(pred, gt),
                  "overflow_pairs": int(sum(counters[:4])), "n_binned": int(counters[4])}

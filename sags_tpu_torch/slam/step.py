@@ -28,6 +28,7 @@ from sags_tpu_torch.semantics.losses import loss_cls_3d, object_ce_loss
 from sags_tpu_torch.utils.adam import AdamState, adam_init, adam_update
 from sags_tpu_torch.utils.draws import TorchDraws
 from sags_tpu_torch.utils.losses import l1_loss, ssim
+from sags_tpu_torch.utils.profiling import span
 
 _CLS_B1, _CLS_B2, _CLS_EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
 
@@ -117,26 +118,37 @@ def slam_step(state: SLAMState, camera: Camera, gt_image: torch.Tensor,
               gt_objects: torch.Tensor, cfg: SLAMConfig,
               mesh=None) -> Tuple[SLAMState, StepMetrics]:
     """One map-optimization iteration, its compositor sharded over `mesh`."""
+    with span("train", device=gt_image.device, unit=state.step):
+        return _slam_step(state, camera, gt_image, gt_objects, cfg, mesh)
+
+
+def _slam_step(state: SLAMState, camera: Camera, gt_image: torch.Tensor,
+               gt_objects: torch.Tensor, cfg: SLAMConfig, mesh):
     m = state.map
     use_cls3d = state.step % cfg.semantics.cls3d_interval == 0
     params = gm.Params(*(p.detach().requires_grad_(True) for p in gm.params_of(m)))
     clf = ClassifierParams(*(p.detach().requires_grad_(True) for p in state.classifier))
     with torch.enable_grad():
-        loss, (loss_rgb, loss_obj, loss_obj_3d, out) = _loss_fn(
-            params, clf, m, camera, gt_image, gt_objects, use_cls3d, state.rng, cfg, mesh)
-        grads = torch.autograd.grad(loss, tuple(params) + tuple(clf), allow_unused=True)
+        with span("step.forward"):
+            loss, (loss_rgb, loss_obj, loss_obj_3d, out) = _loss_fn(
+                params, clf, m, camera, gt_image, gt_objects, use_cls3d, state.rng, cfg, mesh)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, tuple(params) + tuple(clf), allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, tuple(params) + tuple(clf))]
     gmap, gclf = gm.Params(*grads[:7]), grads[7:]
 
-    updates, opt_state = gm.optimizer_update(cfg.opt, gmap, state.opt_state,
-                                             state.step, cfg.scene_extent)
-    new_params = gm.apply_updates(gm.params_of(m), updates, m.active)
-    m = gm.with_params(m, gm.Params(*(p.detach() for p in new_params)))
+    with span("step.adam", device=gt_image.device):
+        updates, opt_state = gm.optimizer_update(cfg.opt, gmap, state.opt_state,
+                                                 state.step, cfg.scene_extent)
+        new_params = gm.apply_updates(gm.params_of(m), updates, m.active)
+        m = gm.with_params(m, gm.Params(*(p.detach() for p in new_params)))
 
-    cupd, cls_opt_state = adam_update(gclf, state.cls_opt_state, _CLS_B1, _CLS_B2, _CLS_EPS)
-    lr = cfg.semantics.classifier_lr
-    new_clf = ClassifierParams(*(p.detach() - lr * u for p, u in zip(state.classifier, cupd)))
+        cupd, cls_opt_state = adam_update(gclf, state.cls_opt_state, _CLS_B1, _CLS_B2,
+                                          _CLS_EPS)
+        lr = cfg.semantics.classifier_lr
+        new_clf = ClassifierParams(*(p.detach() - lr * u
+                                     for p, u in zip(state.classifier, cupd)))
 
     if state.step % cfg.map.prune_interval == 0:
         m = gm.prune_large_and_transparent(m, cfg.map.prune_min_opacity,
