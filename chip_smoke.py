@@ -34,6 +34,13 @@ Phases, each failing the run (non-zero exit, no result line):
        torch.sort, and the kernel-sort compositor
        bitwise equal to the host-table one on every tile the 16-block
        window did not cut;
+     - the pair expansion (a kernel that replaces no TPU kernel), on 40 x 32
+       tiles at the offline cell's shape (P = 2^22 slots, 36 tile offsets)
+       and at 2^20 slots with 64 (the adapted window's widest) and 16 (the
+       SLAM loops'): expand_pairs bit for bit equal to its plain loop on the
+       int64 keys and the overflow, and through the sort on gid_s, starts
+       and the table; its time from a CUDA graph beside its byte bound and
+       the plain loop's time;
   3. drive `SLAMPipeline.run` (fused front-end, GICP tracking) at the
      pipeline bench's operating point for 32 warm + 16 timed frames and check
      finite, falling losses, the trajectory (ATE < 0.12 m over the first
@@ -252,7 +259,8 @@ REFERENCE_ESIKF_LIV_ATE_M = 0.23271127045154572
 REFERENCE_GICP_PER_MODULE_ATE_M = 0.09637406468391418
 IMU_SUBSTEPS = 5  # the CLI's synthetic stream
 ATE_BAR_M, ATE_BAR_PATH_M = 0.12, 0.75  # `tests/test_pipeline.py:71`
-SLAM_KERNELS = ("sags_fill_table", "sags_composite_fused", "sags_composite_fused_bwd")
+SLAM_KERNELS = ("sags_expand_pairs", "sags_fill_table", "sags_composite_fused",
+                "sags_composite_fused_bwd")
 EVAL_EVERY = 6
 
 
@@ -650,6 +658,81 @@ def kernel_phase(device, P=2 ** 18, width=SLICE_W, height=SLICE_H,
               "composite_fused_max_abs_err": err_f,
               "composite_fused_bwd_rel_err": rel, "dG_bitwise_reproducible": True})
         del pre, G, table, acc, acc_p, dGt, dGt_p
+    return results
+
+
+# (slots, tile offsets) of the pair expansion's cases: the offline cell's
+# shape, the adapted window's widest (8 x 8) and the SLAM loops' (4 x 4)
+EXPAND_CASES = ((2 ** 22, 36), (2 ** 20, 64), (2 ** 20, 16))
+# float32 operations of one in-rect offset's conic test: the tile's box (8),
+# `qmin.cuh:box_qmin` (the centre test 4, the clamps and the negation 3, the
+# four edges' minimisers 16, their four quadratics 36, the minimum of them 3)
+# and the gate's comparison (1)
+EXPAND_TEST_OPS = 71
+
+
+def expand_pairs_phase(device, cases=EXPAND_CASES, width=SLICE_W, height=SLICE_H):
+    """`expand_pairs` against its plain loop on a seeded random scene at each
+    (slots, tile offsets) of `cases`: the int64 keys and the overflow bit for
+    bit, and through the sort (`bin_gaussians`) every output; its time from a
+    CUDA graph (`kernel_ms`) beside its byte bound, and the plain loop's
+    (`cuda_ms`). Returns each case's row, keyed by (slots, tile offsets)."""
+    import torch
+
+    from sags_tpu_torch.core.camera import make_camera
+    from sags_tpu_torch.core.config import RasterizeConfig
+    from sags_tpu_torch.ops import binning
+    from sags_tpu_torch.ops import rasterize as rz
+
+    cam = make_camera(torch.eye(3, device=device), torch.zeros(3, device=device),
+                      width, height, 2 * math.atan(width / (2 * 431.8)),
+                      2 * math.atan(height / (2 * 431.8)))
+    tiles_x, tiles_y = width // 16, height // 16
+    NT = tiles_x * tiles_y
+    results = {}
+    for P, max_tiles in cases:
+        cfg = RasterizeConfig(max_tiles_per_gaussian=max_tiles, tile_capacity=1024)
+        R = binning.offset_window(max_tiles)
+        xyz, opac, scales, quats, colors, _ = random_scene(P, device, seed=P + max_tiles)
+        with torch.no_grad():
+            pre = rz.preprocess(xyz, opac, scales, quats, cam, cfg, colors=colors)
+        dq = rz._depth_quant(pre)
+        args = (pre, dq, tiles_x, tiles_y, cfg)
+        got, ov = binning.expand_pairs(*args)
+        want, want_ov = binning.expand_pairs_plain(*args)
+        torch.cuda.synchronize()
+        # the keys' two halves apart, so no difference wraps past int64
+        err = max(float(((got >> 32) - (want >> 32)).abs().max()),
+                  float(((got & 0xFFFFFFFF) - (want & 0xFFFFFFFF)).abs().max()),
+                  float((ov - want_ov).abs()))
+        assert err == 0.0, \
+            f"expand_pairs disagrees with its plain loop at P = {P}, MT = {max_tiles}"
+        live = int(((got >> 48) < NT).sum())
+        del want
+        binned = rz.bin_gaussians(pre, tiles_x, tiles_y, cfg)
+        with swapped(rz, "expand_pairs", binning.expand_pairs_plain):
+            binned_p = rz.bin_gaussians(pre, tiles_x, tiles_y, cfg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(binned, binned_p)), \
+            f"bin_gaussians through expand_pairs disagrees with the plain loop " \
+            f"at P = {P}, MT = {max_tiles}"
+        del binned, binned_p
+        v = pre.valid
+        n_valid = int(v.sum())
+        in_rect = int((torch.clamp(pre.rmax_x - pre.rmin_x, 0, R)
+                       * torch.clamp(pre.rmax_y - pre.rmin_y, 0, R))[v].sum())
+        # the valid flags, each valid slot's rect, dq, centre, conic and
+        # opacity once; the keys and the overflow written once
+        n_bytes = P + 44 * n_valid + 8 * max_tiles * P + 4
+        r = dict(kernel_ms(lambda: binning.expand_pairs(*args), 20),
+                 plain_ms=cuda_ms(lambda: binning.expand_pairs_plain(*args), 3),
+                 bytes=n_bytes, ops=EXPAND_TEST_OPS * in_rect, max_abs_err=err,
+                 bound_ms=n_bytes / PEAK_BYTES_S * 1e3, valid_slots=n_valid,
+                 in_rect_pairs=in_rect, live_pairs=live, overflow_rect=int(ov))
+        results[(P, max_tiles)] = r
+        emit({"phase": "expand_pairs", "slots": P, "max_tiles": max_tiles,
+              "tiles": [tiles_x, tiles_y], "bitwise": True, **r})
+        del got, pre, dq, args
     return results
 
 
@@ -3412,7 +3495,7 @@ def sources_phase(device, cli_res, n_frames=24, post_train=20, cell=CLI_CELL,
                          "composite_windowed_at_viewer_config": view_check}
         assert served == viewer_requests and all(same), res["viewer"]
         # SLAMConfig() renders on the windowed host-table path: rows 1 and 4
-        assert per == {"sags_fill_table": 1, "sags_composite_fused": 0,
+        assert per == {"sags_expand_pairs": 0, "sags_fill_table": 1, "sags_composite_fused": 0,
                        "sags_composite_fused_bwd": 0, "sags_composite_windowed": 1}, per
         emit({"phase": "sources", "viewer": res["viewer"]})
 
@@ -3845,6 +3928,7 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
 
     kres = kernel_phase(device)
+    xres = expand_pairs_phase(device)
     thin = thin_scene_phase(device)
     thin_w = thin_windowed_phase(device)
     wres = windowed_kernel_phase(device, stops=stops)
@@ -3886,8 +3970,11 @@ def main() -> int:
                                          "sags_tpu/ops/pallas_windowed.py:828",
                                          "sags_composite_windowed_sorted"),
            "sort_blocks": ("sags_tpu_torch/csrc/sort_blocks.cu",
-                           "sags_tpu/ops/pallas_sort.py:89", "sags_sort_blocks")}
-    path_of = {"fill_table": "slam", "composite_fused": "slam",
+                           "sags_tpu/ops/pallas_sort.py:89", "sags_sort_blocks"),
+           # replaces no TPU kernel: the JAX package leaves it to XLA
+           "expand_pairs": ("sags_tpu_torch/csrc/expand_pairs.cu", None,
+                            "sags_expand_pairs")}
+    path_of = {"expand_pairs": "slam", "fill_table": "slam", "composite_fused": "slam",
                "composite_fused_bwd": "slam", "composite_windowed": "windowed_host",
                "composite_windowed_bwd": "slam_windowed",
                "composite_windowed_sorted": "windowed_kernel",
@@ -3895,8 +3982,9 @@ def main() -> int:
                # standalone kernel is the block sort's harness
                "sort_blocks": "windowed_kernel"}
     kernels = []
+    rows = dict(wres, expand_pairs=xres[EXPAND_CASES[0]])
     for name, (path, replaces, sym) in src.items():
-        r = kres[K_final][name] if name in kres[K_final] else wres[name]
+        r = kres[K_final][name] if name in kres[K_final] else rows[name]
         t_bytes = r["bytes"] / PEAK_BYTES_S * 1e3
         t_ops = r["ops"] / PEAK_FP32_S * 1e3
         on = path_of[name]

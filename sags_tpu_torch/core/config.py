@@ -25,7 +25,8 @@ class RasterizeConfig:
     num_objects: int = 16  # NUM_OBJECTS (`config.h:16`)
     # Capacity bounds replacing the reference's dynamic `num_rendered`
     # (`rasterizer_impl.cu:288-294`): max tiles one Gaussian may be binned into
-    # (a perfect square — binning enumerates a static R x R offset window)
+    # (a perfect square of at most 16² — binning enumerates a static R x R
+    # offset window, in one CUDA kernel of at most 16 x 16 offsets)
     # and max Gaussians composited per tile. Overflows are counted and surfaced.
     max_tiles_per_gaussian: int = 36
     tile_capacity: int = 1024
@@ -195,6 +196,13 @@ class RasterizeConfig:
     # perf win. Render-only: NOT differentiable; requires window_blocks ≤ 16
     # and tile_capacity ≤ 2048.
     windowed_sort: str = "host"
+
+    def __post_init__(self):
+        # the classic pair expansion's CUDA kernel (`csrc/expand_pairs.cu`)
+        # holds a window of 16 x 16 tile offsets at most
+        if self.max_tiles_per_gaussian > 256:
+            raise ValueError("max_tiles_per_gaussian is at most 256 (a 16 x 16 "
+                             f"offset window), not {self.max_tiles_per_gaussian}")
 
 
 @dataclass(frozen=True)

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -60,21 +62,6 @@ fill_table_kernel(const int32_t* __restrict__ gid_sorted, int n_sorted,
 // The floor: a kernel that does nothing, launched with fill_table's grid.
 __global__ void __launch_bounds__(kThreads) empty_kernel() {}
 
-int g_grid_cap = 0;  // SMs x resident blocks an SM, taken once
-
-int grid_for(long long n_vec) {
-  if (g_grid_cap == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fill_table_kernel,
-                                                  kThreads, 0);
-    g_grid_cap = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  }
-  const long long need = (n_vec + kThreads - 1) / kThreads;
-  return (int)(need < g_grid_cap ? need : g_grid_cap);
-}
-
 }  // namespace
 
 extern "C" int sags_fill_table(const void* gid_sorted, int n_sorted,
@@ -83,7 +70,8 @@ extern "C" int sags_fill_table(const void* gid_sorted, int n_sorted,
   const long long n_vec = (long long)num_tiles * (K >> 2);
   if ((K & 3) != 0 || n_vec > 0x3fffffffLL) return (int)cudaErrorInvalidValue;
   if (n_vec > 0) {
-    fill_table_kernel<<<grid_for(n_vec), kThreads, 0, (cudaStream_t)stream>>>(
+    const int grid = sagsg::grid_for<fill_table_kernel>(kThreads, n_vec);
+    fill_table_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)gid_sorted, n_sorted, (const int32_t*)starts, K,
         (int)n_vec, (int4*)out);
   }
@@ -93,7 +81,8 @@ extern "C" int sags_fill_table(const void* gid_sorted, int n_sorted,
 extern "C" int sags_fill_table_empty(int num_tiles, int K, void* stream) {
   const long long n_vec = (long long)num_tiles * (K >> 2);
   if (n_vec > 0) {
-    empty_kernel<<<grid_for(n_vec), kThreads, 0, (cudaStream_t)stream>>>();
+    const int grid = sagsg::grid_for<fill_table_kernel>(kThreads, n_vec);
+    empty_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>();
   }
   return (int)cudaGetLastError();
 }

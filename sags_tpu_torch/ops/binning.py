@@ -1,10 +1,13 @@
-"""The per-tile work table fill: CUDA kernel `csrc/fill_table.cu` and its
-plain PyTorch version; and the exact alpha cull that decides which
-(Gaussian, tile) pairs are binned at all.
+"""The classic rasterizer's binning kernels, each with its plain PyTorch
+version: the pair expansion (`csrc/expand_pairs.cu`) and the per-tile work
+table fill (`csrc/fill_table.cu`); and the exact alpha cull that decides
+which (Gaussian, tile) pairs are binned at all.
 
-Port of `sags_tpu/ops/pallas_binning.py:fill_table`. After the (tile, depth)
-sort each tile's Gaussian ids form a contiguous segment of the sorted list;
-row t of the table is that segment cut at `capacity`, padded with -1.
+`fill_table` ports `sags_tpu/ops/pallas_binning.py:fill_table`. After the
+(tile, depth) sort each tile's Gaussian ids form a contiguous segment of the
+sorted list; row t of the table is that segment cut at `capacity`, padded
+with -1. `expand_pairs` replaces no TPU kernel (the JAX package leaves the
+expansion to XLA): it makes the (tile, depth, id) keys that sort.
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 KERNEL = CudaKernel("fill_table.cu", "sags_fill_table",
                     [_P, _I, _P, _I, _I, _P, _P])
+EXPAND = CudaKernel("expand_pairs.cu", "sags_expand_pairs",
+                    [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P, _P, _P])
 
 
 def box_qmin(a, b, c_, x0, x1, y0, y1):
@@ -67,6 +73,88 @@ def cull_c2(opacities: torch.Tensor, alpha_min: float) -> torch.Tensor:
     """Alpha-gate level in conic-q units, with the binning's margin:
     q > c² ⟺ alpha < α_min."""
     return gate_level(opacities, alpha_min) * (1.0 + 1e-5) + 1e-6
+
+
+def offset_window(max_tiles: int) -> int:
+    """R of the R×R tile-offset window of `max_tiles` = R² offsets."""
+    R = int(round(max_tiles ** 0.5))
+    if R * R != max_tiles:
+        raise ValueError("max_tiles_per_gaussian must be a perfect square")
+    return R
+
+
+def expand_pairs_plain(pre, dq: torch.Tensor, tiles_x: int, tiles_y: int, cfg):
+    """The same function in plain PyTorch: a loop over the R×R offsets."""
+    P = pre.mx.shape[0]
+    dev = pre.mx.device
+    MT = cfg.max_tiles_per_gaussian
+    R = offset_window(MT)
+    NT = tiles_x * tiles_y
+
+    rect_w = pre.rmax_x - pre.rmin_x
+    rect_h = pre.rmax_y - pre.rmin_y
+    n_rect = rect_w * rect_h
+    covered = torch.clamp(rect_w, max=R) * torch.clamp(rect_h, max=R)
+    overflow_rect = torch.sum(torch.where(pre.valid, n_rect - covered,
+                                          torch.zeros_like(n_rect))).to(torch.int32)
+
+    T = float(cfg.tile)
+    mx, my = pre.mx.detach(), pre.my.detach()
+    qa, qb, qc = pre.ca.detach(), pre.cb.detach(), pre.cc.detach()
+    c2 = cull_c2(pre.opacity, cfg.alpha_min)
+    keys = []
+    for j in range(MT):
+        dx_j, dy_j = j % R, j // R
+        ok = pre.valid & (dx_j < rect_w) & (dy_j < rect_h)
+        tx = pre.rmin_x + dx_j
+        ty = pre.rmin_y + dy_j
+        ok = ok & (tile_qmin(qa, qb, qc, mx, my, tx, ty, T) <= c2)
+        tile_id = ty * tiles_x + tx
+        keys.append(torch.where(ok, (tile_id << 16) | dq,
+                                torch.full_like(dq, NT << 16)))
+    key = torch.stack(keys, 0).reshape(-1).to(torch.int64)
+    gid = torch.arange(P, device=dev, dtype=torch.int64).repeat(MT)
+    return (key << 32) | gid, overflow_rect
+
+
+def expand_pairs(pre, dq: torch.Tensor, tiles_x: int, tiles_y: int, cfg):
+    """The classic binning's pairs over the static R×R tile-offset window
+    (R² = `cfg.max_tiles_per_gaussian`) of every slot of `pre` (a
+    `rasterize.Preprocessed`), `dq` its int32 [P] depth keys.
+
+    Returns (combined int64 [R²·P], overflow_rect int32 []): entry j·P + g is
+    ((tile << 16 | dq[g]) << 32) | g when slot g is valid, tile = its rect's
+    corner + (j % R, j // R) lies in its rect, and the slot's conic passes
+    the alpha gate somewhere on the tile (`tile_qmin` ≤ `cull_c2`), else
+    ((NT << 16) << 32) | g; overflow_rect counts the valid rects' tiles
+    beyond the window."""
+    R = offset_window(cfg.max_tiles_per_gaussian)
+    NT = tiles_x * tiles_y
+    if NT >= (1 << 15):
+        raise ValueError("tile<<16 key packing supports up to 32767 tiles")
+    cols = (pre.mx, pre.my, pre.ca, pre.cb, pre.cc, pre.opacity,
+            pre.rmin_x, pre.rmin_y, pre.rmax_x, pre.rmax_y, pre.valid, dq)
+    P = pre.mx.shape[0]
+    if any(t.shape != (P,) for t in cols):
+        raise ValueError("expand_pairs: every column must be [P]")
+    want = [torch.float32] * 6 + [torch.int32] * 4 + [torch.bool, torch.int32]
+    if [t.dtype for t in cols] != want:
+        raise TypeError("expand_pairs: expected float32 centre, conic and opacity, "
+                        "int32 rect and dq, bool valid")
+    dev = pre.mx.device
+    if any(t.device != dev for t in cols):
+        raise ValueError("expand_pairs: every column must be on one device")
+    if dev.type == "cpu":
+        return expand_pairs_plain(pre, dq, tiles_x, tiles_y, cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"expand_pairs: no kernel for device {dev}")
+    cols = [t.detach().contiguous() for t in cols]
+    combined = torch.empty(R * R * P, dtype=torch.int64, device=dev)
+    overflow_rect = torch.empty((), dtype=torch.int32, device=dev)
+    EXPAND.launch(*(t.data_ptr() for t in cols), P, R, tiles_x, NT, float(cfg.tile),
+                  float(cfg.alpha_min), combined.data_ptr(), overflow_rect.data_ptr(),
+                  stream_ptr(dev))
+    return combined, overflow_rect
 
 
 def fill_table_plain(gid_sorted: torch.Tensor, starts: torch.Tensor,

@@ -8,11 +8,12 @@ Stages, as in the JAX package:
      (and the 16-bit depth keys) match the JAX package.
   2. Binning and compositing, by one of two paths:
      * classic (training): `bin_gaussians` expands pairs over the R×R offset
-       window, sorts (tile<<16 | dq, gid) once and fills the table with the
-       CUDA kernel `fill_table` (`ops/binning.py`); `composite` runs the
-       fused compositor forward and backward (CUDA kernels in
-       `ops/composite.py`) under a `torch.autograd.Function`, the per-pair
-       gradients scattered into dG deterministically;
+       window and fills the table with the CUDA kernels `expand_pairs` and
+       `fill_table` (`ops/binning.py`), sorting (tile<<16 | dq, gid) once
+       between them; `composite` runs the fused compositor forward and
+       backward (CUDA kernels in `ops/composite.py`) under a
+       `torch.autograd.Function`, the per-pair gradients scattered into dG
+       deterministically;
      * windowed (rendering, the default when the shapes allow it, and
        training under `train_windowed`):
        `_prepare_windowed` sorts the packed rows by (anchor tile, depth),
@@ -50,7 +51,7 @@ from sags_tpu_torch.core.config import RasterizeConfig
 from sags_tpu_torch.core.transforms import quat_normalize
 from sags_tpu_torch.ops import composite as comp
 from sags_tpu_torch.ops import windowed as win
-from sags_tpu_torch.ops.binning import cull_c2, fill_table, tile_qmin
+from sags_tpu_torch.ops.binning import cull_c2, expand_pairs, fill_table, tile_qmin
 from sags_tpu_torch.utils.profiling import span
 from sags_tpu_torch.parallel.mesh import (gather_tiles, replicated, shard_tiles,
                                           tile_sharding)
@@ -281,45 +282,14 @@ def _depth_quant(pre: Preprocessed) -> torch.Tensor:
 
 
 def sort_pairs(pre: Preprocessed, tiles_x: int, tiles_y: int, cfg: RasterizeConfig):
-    """Pair expansion over the static R×R offset window and the one
-    (tile<<16 | dq, gid) sort. Returns (gid_sorted int32 [MT·P], starts
-    int32 [NT+1], overflow_rect)."""
-    P = pre.mx.shape[0]
+    """Pair expansion over the static R×R offset window (`binning.expand_pairs`:
+    one CUDA kernel on the card) and the one (tile<<16 | dq, gid) sort.
+    Returns (gid_sorted int32 [MT·P], starts int32 [NT+1], overflow_rect)."""
     dev = pre.mx.device
-    MT = cfg.max_tiles_per_gaussian
-    R = int(round(MT ** 0.5))
-    if R * R != MT:
-        raise ValueError("max_tiles_per_gaussian must be a perfect square")
     NT = tiles_x * tiles_y
-    if NT >= (1 << 15):
-        raise ValueError("tile<<16 key packing supports up to 32767 tiles")
-
-    rect_w = pre.rmax_x - pre.rmin_x
-    rect_h = pre.rmax_y - pre.rmin_y
-    n_rect = rect_w * rect_h
-    covered = torch.clamp(rect_w, max=R) * torch.clamp(rect_h, max=R)
-    overflow_rect = torch.sum(torch.where(pre.valid, n_rect - covered,
-                                          torch.zeros_like(n_rect))).to(torch.int32)
-
-    dq = _depth_quant(pre)
-    T = float(cfg.tile)
-    mx, my = pre.mx.detach(), pre.my.detach()
-    qa, qb, qc = pre.ca.detach(), pre.cb.detach(), pre.cc.detach()
-    c2 = cull_c2(pre.opacity, cfg.alpha_min)
-    keys = []
-    for j in range(MT):
-        dx_j, dy_j = j % R, j // R
-        ok = pre.valid & (dx_j < rect_w) & (dy_j < rect_h)
-        tx = pre.rmin_x + dx_j
-        ty = pre.rmin_y + dy_j
-        ok = ok & (tile_qmin(qa, qb, qc, mx, my, tx, ty, T) <= c2)
-        tile_id = ty * tiles_x + tx
-        keys.append(torch.where(ok, (tile_id << 16) | dq,
-                                torch.full_like(dq, NT << 16)))
-    key = torch.stack(keys, 0).reshape(-1).to(torch.int64)
-    gid = torch.arange(P, device=dev, dtype=torch.int64).repeat(MT)
+    combined, overflow_rect = expand_pairs(pre, _depth_quant(pre), tiles_x, tiles_y, cfg)
     # ties in (tile, dq) break by Gaussian id: one sort of the combined key
-    combined, _ = torch.sort((key << 32) | gid)
+    combined, _ = torch.sort(combined)
     key_s = (combined >> 32).to(torch.int32)
     gid_s = (combined & 0xFFFFFFFF).to(torch.int32)
     bounds = torch.arange(NT + 1, device=dev, dtype=torch.int32) << 16

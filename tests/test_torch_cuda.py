@@ -88,6 +88,37 @@ def test_fill_table_kernel_edge_cases(device, K):
         binning.fill_table(gid_t, starts_t, len(counts), K + 2)
 
 
+@pytest.mark.parametrize("max_tiles", [16, 36, 64])
+def test_expand_pairs_kernel_matches_plain(device, max_tiles, monkeypatch):
+    """Bit for bit on the int64 keys and the overflow, and through the sort
+    on (gid_s, starts, overflow_rect) and the filled table, on a scene with
+    invalid and inactive slots, rects clipped at the image's edges, rects
+    wider than R, opacities at alpha_min, and P not a multiple of the block.
+    One launch a `bin_gaussians`."""
+    from test_torch_expand_pairs import TILES_X as TX, TILES_Y as TY, pair_scene, scene_cases
+
+    pre, cfg = pair_scene(max_tiles, device, max_tiles)
+    dq = rz._depth_quant(pre)
+    before = binning.EXPAND.launches
+    got, ov = binning.expand_pairs(pre, dq, TX, TY, cfg)
+    assert binning.EXPAND.launches == before + 1
+    want, want_ov = binning.expand_pairs_plain(pre, dq, TX, TY, cfg)
+    assert torch.equal(got, want) and torch.equal(ov, want_ov)
+    cases = scene_cases(pre, cfg, got)
+    assert all(v > 0 for v in cases.values()) and int(ov) > 0, cases
+
+    sorted_k = rz.sort_pairs(pre, TX, TY, cfg)
+    n = binning.EXPAND.launches
+    binned = rz.bin_gaussians(pre, TX, TY, cfg)
+    assert binning.EXPAND.launches == n + 1
+    monkeypatch.setattr(rz, "expand_pairs", binning.expand_pairs_plain)
+    sorted_p = rz.sort_pairs(pre, TX, TY, cfg)
+    binned_p = rz.bin_gaussians(pre, TX, TY, cfg)
+    assert binning.EXPAND.launches == n + 1
+    for a, b in zip((*sorted_k, *binned), (*sorted_p, *binned_p)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("chunk", [32, 64])
 def test_composite_kernels_match_plain(device, chunk):
     """Forward to 1e-5 absolute (the same float32 arithmetic summed in another
@@ -158,6 +189,14 @@ def test_wrappers_check_their_inputs(device):
     counts = torch.zeros(2, dtype=torch.int32, device=device)
     with pytest.raises(ValueError):
         composite.composite_fused(G, table, counts, 16, 2)
+    from test_torch_expand_pairs import TILES_X as TX, TILES_Y as TY, pair_scene
+
+    pre, cfg = pair_scene(0, device, n=300)
+    with pytest.raises(TypeError):
+        binning.expand_pairs(pre._replace(opacity=pre.opacity.double()),
+                             rz._depth_quant(pre), TX, TY, cfg)
+    with pytest.raises(ValueError):
+        binning.expand_pairs(pre, rz._depth_quant(pre).cpu(), TX, TY, cfg)
 
 
 def test_composite_bwd_kernel_ragged_empty_and_full_tiles(device):
