@@ -69,6 +69,26 @@ def _load_dataset(args, device):
     raise SystemExit(f"unknown dataset {args.dataset}")
 
 
+def mask_generator(args, cfg, device):
+    """run-slam's mask generator from `--mask-backend`: geometric clusters,
+    SAM with the shipped synthetic-trained weights, or MobileSAM at its
+    published widths with weights drawn from the config's seed (no
+    checkpoint is in the repository; `models.mobile_sam.load_checkpoint`
+    loads one)."""
+    if args.mask_backend == "geometric":
+        from sags_tpu_torch.semantics.geometric import GeometricMaskGenerator
+
+        return GeometricMaskGenerator(num_classes=cfg.semantics.num_classes)
+    from sags_tpu_torch.semantics.masks import MaskGenerator
+
+    sam = None
+    if args.mask_backend == "mobile_sam":
+        from sags_tpu_torch.models.mobile_sam import MobileSAM
+
+        sam = MobileSAM(seed=cfg.seed, device=device)
+    return MaskGenerator(sam=sam, num_classes=cfg.semantics.num_classes, device=device)
+
+
 def cmd_run_slam(args):
     from sags_tpu_torch.core.config import SLAMConfig, preset
     from sags_tpu_torch.io.ply import save_map_ply
@@ -100,16 +120,7 @@ def cmd_run_slam(args):
     if args.capacity:
         cfg = cfg.replace(map=dataclasses.replace(cfg.map, initial_capacity=args.capacity))
     frames = _load_dataset(args, device)
-    mask_gen = None
-    if args.semantics:
-        if args.mask_backend == "geometric":
-            from sags_tpu_torch.semantics.geometric import GeometricMaskGenerator
-
-            mask_gen = GeometricMaskGenerator(num_classes=cfg.semantics.num_classes)
-        else:  # SAM with the shipped synthetic-trained weights
-            from sags_tpu_torch.semantics.masks import MaskGenerator
-
-            mask_gen = MaskGenerator(num_classes=cfg.semantics.num_classes, device=device)
+    mask_gen = mask_generator(args, cfg, device) if args.semantics else None
     pipe = SLAMPipeline(cfg, mask_generator=mask_gen, point_budget=args.point_budget,
                         device=device)
     if resumed_state is not None:
@@ -519,7 +530,8 @@ def main(argv=None):
     sp.add_argument("--tracking", default=None,
                     choices=["none", "gicp", "vgicp", "gicp_map", "esikf"])
     sp.add_argument("--semantics", action="store_true")
-    sp.add_argument("--mask-backend", default="geometric", choices=["geometric", "sam"])
+    sp.add_argument("--mask-backend", default="geometric",
+                    choices=["geometric", "sam", "mobile_sam"])
     sp.add_argument("--port", type=int, default=7011,
                     help="TCP port for --dataset socket (io/stream.py)")
     sp.add_argument("--post-train", type=int, default=None)

@@ -11,7 +11,8 @@ temporally consistent.
     copies, the host path.
   * `_project_vote`, `_apply_lut` and `DeviceInstanceAssociator`
     (`:127-228`): torch on the map's device. The host fetches one [L, L]
-    vote table a keyframe, and the label memory lives on the map's slots.
+    vote table a keyframe, and the label memory lives on the map's slots;
+    `associate` is a device span of its name (`utils/profiling.py`).
 
 The device projection is written as elementwise float32 operations in a
 fixed order (no matrix product), so the CPU and the card round alike and a
@@ -27,7 +28,7 @@ from typing import Dict, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from sags_tpu_torch.utils.profiling import host_read
+from sags_tpu_torch.utils.profiling import host_read, span
 
 
 def project_points_pinhole(
@@ -204,6 +205,10 @@ class DeviceInstanceAssociator:
         intrinsics,  # (fx, fy, cx, cy)
         used_labels: Optional[Set[int]] = None,
     ) -> torch.Tensor:
+        with span("associate", device=xyz.device):
+            return self._associate(xyz, active, mask, pose, intrinsics, used_labels)
+
+    def _associate(self, xyz, active, mask, pose, intrinsics, used_labels):
         fx, fy, cx, cy = intrinsics
         H, W = mask.shape
         C = xyz.shape[0]
@@ -226,5 +231,5 @@ class DeviceInstanceAssociator:
             if used_labels is not None:
                 used_labels.discard(cv)
         mask_new, self._prev_labels = _apply_lut(mask, curr, active,
-                                                 torch.as_tensor(lut, device=dev))
+                                                 host_read(torch.as_tensor, lut, device=dev))
         return mask_new

@@ -320,19 +320,21 @@ class SLAMPipeline:
         """The mask generator's label map of the frame, its IDs associated
         on the device with the map's (`sags_tpu/slam/pipeline.py:542-563`):
         one [L, L] vote table crosses to the host. Returns [H,W] int32 on
-        the map's device."""
+        the map's device. Span `segment` (device), around the generator's
+        spans and `associate`."""
         H, W = frame.image.shape[1:]
-        mask = torch.as_tensor(
-            np.asarray(self.mask_generator.generate_objects(frame.image)).astype(np.int32),
-            device=self.device)
-        cam_cfg = self.cfg.camera
-        fx = cam_cfg.fx * W / cam_cfg.width
-        fy = cam_cfg.fy * H / cam_cfg.height
-        cx = cam_cfg.cx * W / cam_cfg.width
-        cy = cam_cfg.cy * H / cam_cfg.height
-        return self.associator.associate(
-            self.state.map.xyz, self.state.map.active, mask, pose, (fx, fy, cx, cy),
-            used_labels=getattr(self.mask_generator, "used_labels", None))
+        with span("segment", device=self.device):
+            labels = self.mask_generator.generate_objects(frame.image)
+            mask = host_read(torch.as_tensor, np.asarray(labels).astype(np.int32),
+                             device=self.device)
+            cam_cfg = self.cfg.camera
+            fx = cam_cfg.fx * W / cam_cfg.width
+            fy = cam_cfg.fy * H / cam_cfg.height
+            cx = cam_cfg.cx * W / cam_cfg.width
+            cy = cam_cfg.cy * H / cam_cfg.height
+            return self.associator.associate(
+                self.state.map.xyz, self.state.map.active, mask, pose, (fx, fy, cx, cy),
+                used_labels=getattr(self.mask_generator, "used_labels", None))
 
     # -- per-module front-end --------------------------------------------
     @property

@@ -3,15 +3,16 @@
   * `PhaseTimer` — per-phase wall times, fenced by `torch.cuda.synchronize`
     on the device of every CUDA tensor in a phase's output (device-truthful,
     unlike timing the asynchronous launches).
-  * `span`, `host_read`, `records` — the program's own spans and sync
-    counters. Tracing is on exactly while a `torch.profiler` session
-    records, and off at every other time. On, a span is a
-    `record_function` range in the profiler's trace, on the profiler's
-    clock beside the device's kernels; a device span also records a CUDA
-    event at entry and exit; and every host read that goes through
-    `host_read` counts one sync against the innermost open span of its
-    thread. Off, a span or a `host_read` costs one flag test: no range, no
-    event, no count.
+  * `span`, `host_read`, `count`, `records` — the program's own spans,
+    sync counters and work counters. Tracing is on exactly while a
+    `torch.profiler` session records, and off at every other time. On, a
+    span is a `record_function` range in the profiler's trace, on the
+    profiler's clock beside the device's kernels; a device span also
+    records a CUDA event at entry and exit; every host read that goes
+    through `host_read` counts one sync against the innermost open span of
+    its thread; and `count(name, n)` adds `n` to the counter `name` of that
+    span. Off, a span, a `host_read` or a `count` costs one flag test: no
+    range, no event, no count.
   * `trace(logdir)` — the operator's path: a `torch.profiler` session
     around a block that writes its Chrome trace and `spans.json` (per span
     name: count, syncs, host and device ms) into `logdir`.
@@ -20,7 +21,7 @@ Each span records its name, its parent (the innermost span open on its
 thread; on another thread than the main one, the `frame` or `train` span
 open on the main thread), its thread ("main", "autograd" for the autograd
 engine's device thread, else the thread's name), the frame or iteration it
-belongs to (`unit`, inherited from the parent) and its syncs.
+belongs to (`unit`, inherited from the parent), its syncs and its counters.
 """
 
 from __future__ import annotations
@@ -111,6 +112,7 @@ class SpanRecord:
     start: Optional[torch.cuda.Event] = None
     end: Optional[torch.cuda.Event] = None
     device_ms: Optional[float] = None  # resolved by `records()`
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class _State:
@@ -241,6 +243,17 @@ def host_read(fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
 
+def count(name: str, n: int) -> None:
+    """Add `n` to the counter `name` of the innermost open span of this
+    thread while tracing is on (a count with no span open is dropped)."""
+    if _profiler._is_profiler_enabled:
+        if not _S.live:
+            _begin()
+        st = getattr(_local, "stack", None)
+        if st:
+            st[-1].counts[name] = st[-1].counts.get(name, 0) + int(n)
+
+
 @dataclasses.dataclass
 class Records:
     """What tracing recorded since it last turned on: the spans in the order
@@ -269,6 +282,10 @@ class Records:
     def syncs_within(self, name: str) -> int:
         return sum(r.syncs for r in self.within(name))
 
+    def counter(self, name: str) -> int:
+        """The counter `name` summed over every span."""
+        return sum(r.counts.get(name, 0) for r in self.spans)
+
     def device_ms(self, name: str) -> Optional[float]:
         """Summed device ms between the entry and exit events of the spans
         named `name`; None when none has events."""
@@ -276,13 +293,17 @@ class Records:
         return float(sum(ms)) if ms else None
 
     def summary(self) -> Dict[str, dict]:
-        """Per span name: count, syncs (its own, not its children's) and
-        device ms (null for a span without events)."""
+        """Per span name: count, syncs (its own, not its children's),
+        device ms (null for a span without events) and, where it has any,
+        its counters."""
         out: Dict[str, dict] = {}
         for r in self.spans:
             s = out.setdefault(r.name, {"count": 0, "syncs": 0, "device_ms": None})
             s["count"] += 1
             s["syncs"] += r.syncs
+            for k, n in r.counts.items():
+                c = s.setdefault("counters", {})
+                c[k] = c.get(k, 0) + n
             if r.device_ms is not None:
                 s["device_ms"] = (s["device_ms"] or 0.0) + r.device_ms
         return out
@@ -359,7 +380,8 @@ def per_unit(summary: dict, units: int) -> dict:
         "device_busy_ms": div(summary["device_busy_ms"]),
         "device_idle_share": summary["device_idle_share"],
         "launches": div(summary["launches"]),
-        "spans": {k: {f: div(v) for f, v in s.items()} for k, s in summary["spans"].items()},
+        "spans": {k: {f: {c: div(n) for c, n in v.items()} if isinstance(v, dict) else div(v)
+                      for f, v in s.items()} for k, s in summary["spans"].items()},
         "top_device": [dict(t, calls=div(t["calls"]), device_ms=div(t["device_ms"]))
                        for t in summary["top_device"]],
     }
