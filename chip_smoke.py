@@ -37,10 +37,13 @@ Phases, each failing the run (non-zero exit, no result line):
      - the pair expansion (a kernel that replaces no TPU kernel), on 40 x 32
        tiles at the offline cell's shape (P = 2^22 slots, 36 tile offsets)
        and at 2^20 slots with 64 (the adapted window's widest) and 16 (the
-       SLAM loops'): expand_pairs bit for bit equal to its plain loop on the
-       int64 keys and the overflow, and through the sort on gid_s, starts
-       and the table; its time from a CUDA graph beside its byte bound and
-       the plain loop's time;
+       SLAM loops'): expand_pairs' live count and overflow equal to its
+       plain loop's, its live keys bit for bit once sorted, and through the
+       sort gid_s (the live prefix), starts and the table equal to the plain
+       loop's and to the sort of every slot and offset's key cut at
+       n_binned; its time from a CUDA graph beside its byte bound and the
+       plain loop's time; sort_pairs end to end beside the sort of every
+       key;
   3. drive `SLAMPipeline.run` (fused front-end, GICP tracking) at the
      pipeline bench's operating point for 32 warm + 16 timed frames and check
      finite, falling losses, the trajectory (ATE < 0.12 m over the first
@@ -671,12 +674,49 @@ EXPAND_CASES = ((2 ** 22, 36), (2 ** 20, 64), (2 ** 20, 16))
 EXPAND_TEST_OPS = 71
 
 
+def parent_keys(pre, keys, n_live, tiles_x, NT, R):
+    """The [R²·P] keys the expansion wrote before it kept the live pairs
+    alone, rebuilt from the live ones: entry j·P + g holds slot g's key at
+    offset j = dy·R + dx when that pair is live, else ((NT << 16) << 32) | g."""
+    import torch
+
+    P = pre.mx.shape[0]
+    dev = keys.device
+    live = keys[:int(n_live)]
+    g = live & 0xFFFFFFFF
+    tile = live >> 48
+    dx = tile % tiles_x - pre.rmin_x.long()[g]
+    dy = tile // tiles_x - pre.rmin_y.long()[g]
+    dense = (torch.full((R * R * P,), NT << 16, dtype=torch.int64, device=dev) << 32) \
+        | torch.arange(P, dtype=torch.int64, device=dev).repeat(R * R)
+    dense[(dy * R + dx) * P + g] = live
+    return dense
+
+
+def sort_all_pairs(dense, NT):
+    """`rasterize.sort_pairs` after the expansion as it ran before: the sort
+    of every slot and offset's key, sentinels included, the split and the
+    tile bounds. Returns (gid_s [R²·P], starts)."""
+    import torch
+
+    combined, _ = torch.sort(dense)
+    key_s = (combined >> 32).to(torch.int32)
+    gid_s = (combined & 0xFFFFFFFF).to(torch.int32)
+    bounds = torch.arange(NT + 1, device=dense.device, dtype=torch.int32) << 16
+    return gid_s, torch.searchsorted(key_s, bounds, out_int32=True)
+
+
 def expand_pairs_phase(device, cases=EXPAND_CASES, width=SLICE_W, height=SLICE_H):
     """`expand_pairs` against its plain loop on a seeded random scene at each
-    (slots, tile offsets) of `cases`: the int64 keys and the overflow bit for
-    bit, and through the sort (`bin_gaussians`) every output; its time from a
-    CUDA graph (`kernel_ms`) beside its byte bound, and the plain loop's
-    (`cuda_ms`). Returns each case's row, keyed by (slots, tile offsets)."""
+    (slots, tile offsets) of `cases`: the live count and overflow exactly,
+    the live keys bit for bit once sorted (the kernel's order is not set),
+    and through the sort (`sort_pairs`, `bin_gaussians`) every output, also
+    against the sort of every slot and offset's key as it ran before
+    (`sort_all_pairs`: its gid_s cut at n_binned); its time from a CUDA graph
+    (`kernel_ms`) beside its byte bound, and the plain loop's (`cuda_ms`);
+    `sort_pairs` end to end (`sort_pairs_ms`, the live count's read
+    included) beside the sort of every key (`sort_all_ms`, the expansion
+    left out). Returns each case's row, keyed by (slots, tile offsets)."""
     import torch
 
     from sags_tpu_torch.core.camera import make_camera
@@ -698,16 +738,14 @@ def expand_pairs_phase(device, cases=EXPAND_CASES, width=SLICE_W, height=SLICE_H
             pre = rz.preprocess(xyz, opac, scales, quats, cam, cfg, colors=colors)
         dq = rz._depth_quant(pre)
         args = (pre, dq, tiles_x, tiles_y, cfg)
-        got, ov = binning.expand_pairs(*args)
-        want, want_ov = binning.expand_pairs_plain(*args)
+        got, n_live, ov = binning.expand_pairs(*args)
+        want, want_n, want_ov = binning.expand_pairs_plain(*args)
         torch.cuda.synchronize()
-        # the keys' two halves apart, so no difference wraps past int64
-        err = max(float(((got >> 32) - (want >> 32)).abs().max()),
-                  float(((got & 0xFFFFFFFF) - (want & 0xFFFFFFFF)).abs().max()),
-                  float((ov - want_ov).abs()))
-        assert err == 0.0, \
+        live = int(n_live)
+        assert live == int(want_n) and int(ov) == int(want_ov), \
+            f"expand_pairs' counts disagree with its plain loop at P = {P}, MT = {max_tiles}"
+        assert torch.equal(torch.sort(got[:live]).values, torch.sort(want).values), \
             f"expand_pairs disagrees with its plain loop at P = {P}, MT = {max_tiles}"
-        live = int(((got >> 48) < NT).sum())
         del want
         binned = rz.bin_gaussians(pre, tiles_x, tiles_y, cfg)
         with swapped(rz, "expand_pairs", binning.expand_pairs_plain):
@@ -717,18 +755,31 @@ def expand_pairs_phase(device, cases=EXPAND_CASES, width=SLICE_W, height=SLICE_H
             f"bin_gaussians through expand_pairs disagrees with the plain loop " \
             f"at P = {P}, MT = {max_tiles}"
         del binned, binned_p
+        dense = parent_keys(pre, got, n_live, tiles_x, NT, R)
+        gid_s, starts, _ = rz.sort_pairs(pre, tiles_x, tiles_y, cfg)
+        gid_all, starts_all = sort_all_pairs(dense, NT)
+        torch.cuda.synchronize()
+        assert gid_s.shape == (live,) and torch.equal(gid_s, gid_all[:live]) \
+            and torch.equal(starts, starts_all), \
+            f"sort_pairs' live prefix disagrees with the sort of every key at P = {P}, " \
+            f"MT = {max_tiles}"
+        del gid_s, starts, gid_all, starts_all
+        sort_all_ms = cuda_ms(lambda: sort_all_pairs(dense, NT), 3)
+        del dense
+        sort_pairs_ms = cuda_ms(lambda: rz.sort_pairs(pre, tiles_x, tiles_y, cfg), 5)
         v = pre.valid
         n_valid = int(v.sum())
         in_rect = int((torch.clamp(pre.rmax_x - pre.rmin_x, 0, R)
                        * torch.clamp(pre.rmax_y - pre.rmin_y, 0, R))[v].sum())
         # the valid flags, each valid slot's rect, dq, centre, conic and
-        # opacity once; the keys and the overflow written once
-        n_bytes = P + 44 * n_valid + 8 * max_tiles * P + 4
+        # opacity once; the live keys and the two counters written once
+        n_bytes = P + 44 * n_valid + 8 * live + 8
         r = dict(kernel_ms(lambda: binning.expand_pairs(*args), 20),
                  plain_ms=cuda_ms(lambda: binning.expand_pairs_plain(*args), 3),
-                 bytes=n_bytes, ops=EXPAND_TEST_OPS * in_rect, max_abs_err=err,
+                 bytes=n_bytes, ops=EXPAND_TEST_OPS * in_rect, max_abs_err=0.0,
                  bound_ms=n_bytes / PEAK_BYTES_S * 1e3, valid_slots=n_valid,
-                 in_rect_pairs=in_rect, live_pairs=live, overflow_rect=int(ov))
+                 in_rect_pairs=in_rect, live_pairs=live, live_share=live / (max_tiles * P),
+                 overflow_rect=int(ov), sort_pairs_ms=sort_pairs_ms, sort_all_ms=sort_all_ms)
         results[(P, max_tiles)] = r
         emit({"phase": "expand_pairs", "slots": P, "max_tiles": max_tiles,
               "tiles": [tiles_x, tiles_y], "bitwise": True, **r})

@@ -84,12 +84,13 @@ def offset_window(max_tiles: int) -> int:
 
 
 def expand_pairs_plain(pre, dq: torch.Tensor, tiles_x: int, tiles_y: int, cfg):
-    """The same function in plain PyTorch: a loop over the R×R offsets."""
+    """The same function in plain PyTorch: a loop over the R×R offsets, the
+    live keys kept in the loop's order (offset-major), so `keys` is exactly
+    `n_live` long."""
     P = pre.mx.shape[0]
     dev = pre.mx.device
     MT = cfg.max_tiles_per_gaussian
     R = offset_window(MT)
-    NT = tiles_x * tiles_y
 
     rect_w = pre.rmax_x - pre.rmin_x
     rect_h = pre.rmax_y - pre.rmin_y
@@ -102,19 +103,19 @@ def expand_pairs_plain(pre, dq: torch.Tensor, tiles_x: int, tiles_y: int, cfg):
     mx, my = pre.mx.detach(), pre.my.detach()
     qa, qb, qc = pre.ca.detach(), pre.cb.detach(), pre.cc.detach()
     c2 = cull_c2(pre.opacity, cfg.alpha_min)
-    keys = []
+    keys, live = [], []
     for j in range(MT):
         dx_j, dy_j = j % R, j // R
         ok = pre.valid & (dx_j < rect_w) & (dy_j < rect_h)
         tx = pre.rmin_x + dx_j
         ty = pre.rmin_y + dy_j
-        ok = ok & (tile_qmin(qa, qb, qc, mx, my, tx, ty, T) <= c2)
-        tile_id = ty * tiles_x + tx
-        keys.append(torch.where(ok, (tile_id << 16) | dq,
-                                torch.full_like(dq, NT << 16)))
+        live.append(ok & (tile_qmin(qa, qb, qc, mx, my, tx, ty, T) <= c2))
+        keys.append(((ty * tiles_x + tx) << 16) | dq)
     key = torch.stack(keys, 0).reshape(-1).to(torch.int64)
     gid = torch.arange(P, device=dev, dtype=torch.int64).repeat(MT)
-    return (key << 32) | gid, overflow_rect
+    live = torch.stack(live, 0).reshape(-1)
+    keys = ((key << 32) | gid)[live]
+    return keys, torch.sum(live, dtype=torch.int32), overflow_rect
 
 
 def expand_pairs(pre, dq: torch.Tensor, tiles_x: int, tiles_y: int, cfg):
@@ -122,12 +123,14 @@ def expand_pairs(pre, dq: torch.Tensor, tiles_x: int, tiles_y: int, cfg):
     (R² = `cfg.max_tiles_per_gaussian`) of every slot of `pre` (a
     `rasterize.Preprocessed`), `dq` its int32 [P] depth keys.
 
-    Returns (combined int64 [R²·P], overflow_rect int32 []): entry j·P + g is
-    ((tile << 16 | dq[g]) << 32) | g when slot g is valid, tile = its rect's
-    corner + (j % R, j // R) lies in its rect, and the slot's conic passes
-    the alpha gate somewhere on the tile (`tile_qmin` ≤ `cull_c2`), else
-    ((NT << 16) << 32) | g; overflow_rect counts the valid rects' tiles
-    beyond the window."""
+    Returns (keys int64, n_live int32 [], overflow_rect int32 []): the pair
+    (slot g, offset j) is live when slot g is valid, tile = its rect's corner
+    + (j % R, j // R) lies in its rect, and the slot's conic passes the alpha
+    gate somewhere on the tile (`tile_qmin` ≤ `cull_c2`); `keys[:n_live]`
+    holds the key ((tile << 16 | dq[g]) << 32) | g of every live pair, once,
+    in no set order on the card (the kernel writes an [R²·P] buffer densely
+    from the front), in the loop's order on the CPU; overflow_rect counts the
+    valid rects' tiles beyond the window."""
     R = offset_window(cfg.max_tiles_per_gaussian)
     NT = tiles_x * tiles_y
     if NT >= (1 << 15):
@@ -137,6 +140,8 @@ def expand_pairs(pre, dq: torch.Tensor, tiles_x: int, tiles_y: int, cfg):
     P = pre.mx.shape[0]
     if any(t.shape != (P,) for t in cols):
         raise ValueError("expand_pairs: every column must be [P]")
+    if R * R * P >= (1 << 31):
+        raise ValueError("expand_pairs: R²·P keys must fit an int32 count")
     want = [torch.float32] * 6 + [torch.int32] * 4 + [torch.bool, torch.int32]
     if [t.dtype for t in cols] != want:
         raise TypeError("expand_pairs: expected float32 centre, conic and opacity, "
@@ -149,12 +154,12 @@ def expand_pairs(pre, dq: torch.Tensor, tiles_x: int, tiles_y: int, cfg):
     if dev.type != "cuda":
         raise ValueError(f"expand_pairs: no kernel for device {dev}")
     cols = [t.detach().contiguous() for t in cols]
-    combined = torch.empty(R * R * P, dtype=torch.int64, device=dev)
-    overflow_rect = torch.empty((), dtype=torch.int32, device=dev)
+    keys = torch.empty(R * R * P, dtype=torch.int64, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)  # overflow_rect, n_live
     EXPAND.launch(*(t.data_ptr() for t in cols), P, R, tiles_x, NT, float(cfg.tile),
-                  float(cfg.alpha_min), combined.data_ptr(), overflow_rect.data_ptr(),
+                  float(cfg.alpha_min), keys.data_ptr(), counters.data_ptr(),
                   stream_ptr(dev))
-    return combined, overflow_rect
+    return keys, counters[1], counters[0]
 
 
 def fill_table_plain(gid_sorted: torch.Tensor, starts: torch.Tensor,

@@ -9,9 +9,9 @@ Stages, as in the JAX package:
   2. Binning and compositing, by one of two paths:
      * classic (training): `bin_gaussians` expands pairs over the R×R offset
        window and fills the table with the CUDA kernels `expand_pairs` and
-       `fill_table` (`ops/binning.py`), sorting (tile<<16 | dq, gid) once
-       between them; `composite` runs the fused compositor forward and
-       backward (CUDA kernels in `ops/composite.py`) under a
+       `fill_table` (`ops/binning.py`), sorting the live (tile<<16 | dq,
+       gid) keys once between them; `composite` runs the fused compositor
+       forward and backward (CUDA kernels in `ops/composite.py`) under a
        `torch.autograd.Function`, the per-pair gradients scattered into dG
        deterministically;
      * windowed (rendering, the default when the shapes allow it, and
@@ -52,7 +52,7 @@ from sags_tpu_torch.core.transforms import quat_normalize
 from sags_tpu_torch.ops import composite as comp
 from sags_tpu_torch.ops import windowed as win
 from sags_tpu_torch.ops.binning import cull_c2, expand_pairs, fill_table, tile_qmin
-from sags_tpu_torch.utils.profiling import span
+from sags_tpu_torch.utils.profiling import count, host_read, span
 from sags_tpu_torch.parallel.mesh import (gather_tiles, replicated, shard_tiles,
                                           tile_sharding)
 
@@ -283,13 +283,18 @@ def _depth_quant(pre: Preprocessed) -> torch.Tensor:
 
 def sort_pairs(pre: Preprocessed, tiles_x: int, tiles_y: int, cfg: RasterizeConfig):
     """Pair expansion over the static R×R offset window (`binning.expand_pairs`:
-    one CUDA kernel on the card) and the one (tile<<16 | dq, gid) sort.
-    Returns (gid_sorted int32 [MT·P], starts int32 [NT+1], overflow_rect)."""
+    one CUDA kernel on the card) and the one (tile<<16 | dq, gid) sort of
+    the live pairs alone, their count read by the host (one sync).
+    Returns (gid_sorted int32 [n_binned], starts int32 [NT+1], overflow_rect)."""
     dev = pre.mx.device
     NT = tiles_x * tiles_y
-    combined, overflow_rect = expand_pairs(pre, _depth_quant(pre), tiles_x, tiles_y, cfg)
+    dq = _depth_quant(pre)
+    keys, n_live, overflow_rect = expand_pairs(pre, dq, tiles_x, tiles_y, cfg)
+    n = host_read(int, n_live)
+    count("bin.pairs", n)
+    count("bin.slots", cfg.max_tiles_per_gaussian * pre.mx.shape[0])
     # ties in (tile, dq) break by Gaussian id: one sort of the combined key
-    combined, _ = torch.sort(combined)
+    combined, _ = torch.sort(keys[:n])
     key_s = (combined >> 32).to(torch.int32)
     gid_s = (combined & 0xFFFFFFFF).to(torch.int32)
     bounds = torch.arange(NT + 1, device=dev, dtype=torch.int32) << 16

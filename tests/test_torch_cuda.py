@@ -88,35 +88,91 @@ def test_fill_table_kernel_edge_cases(device, K):
         binning.fill_table(gid_t, starts_t, len(counts), K + 2)
 
 
+def _sorted_live(keys, n_live):
+    """The kernel's live prefix in key order (its order is not set)."""
+    return torch.sort(keys[:int(n_live)]).values
+
+
+def _bin_both(pre, cfg, TX, TY, monkeypatch):
+    """(sort_pairs, bin_gaussians) through the kernel, then through the plain
+    expansion; one kernel launch a `bin_gaussians`, none on the plain side."""
+    sorted_k = rz.sort_pairs(pre, TX, TY, cfg)
+    n = binning.EXPAND.launches
+    binned = rz.bin_gaussians(pre, TX, TY, cfg)
+    assert binning.EXPAND.launches == n + 1
+    with monkeypatch.context() as mp:
+        mp.setattr(rz, "expand_pairs", binning.expand_pairs_plain)
+        sorted_p = rz.sort_pairs(pre, TX, TY, cfg)
+        binned_p = rz.bin_gaussians(pre, TX, TY, cfg)
+    assert binning.EXPAND.launches == n + 1
+    return (*sorted_k, *binned), (*sorted_p, *binned_p)
+
+
 @pytest.mark.parametrize("max_tiles", [16, 36, 64])
 def test_expand_pairs_kernel_matches_plain(device, max_tiles, monkeypatch):
-    """Bit for bit on the int64 keys and the overflow, and through the sort
-    on (gid_s, starts, overflow_rect) and the filled table, on a scene with
-    invalid and inactive slots, rects clipped at the image's edges, rects
-    wider than R, opacities at alpha_min, and P not a multiple of the block.
-    One launch a `bin_gaussians`."""
+    """The live count exactly, the live keys bit for bit once sorted (the
+    kernel's order is not set), the overflow, and through the sort every
+    output of `sort_pairs` (gid_s the live prefix) and `bin_gaussians`, on a
+    scene with invalid and inactive slots, rects clipped at the image's
+    edges, rects wider than R, opacities at alpha_min, and P not a multiple
+    of the block. One launch a `bin_gaussians`."""
     from test_torch_expand_pairs import TILES_X as TX, TILES_Y as TY, pair_scene, scene_cases
 
     pre, cfg = pair_scene(max_tiles, device, max_tiles)
     dq = rz._depth_quant(pre)
     before = binning.EXPAND.launches
-    got, ov = binning.expand_pairs(pre, dq, TX, TY, cfg)
+    got, n_live, ov = binning.expand_pairs(pre, dq, TX, TY, cfg)
     assert binning.EXPAND.launches == before + 1
-    want, want_ov = binning.expand_pairs_plain(pre, dq, TX, TY, cfg)
-    assert torch.equal(got, want) and torch.equal(ov, want_ov)
-    cases = scene_cases(pre, cfg, got)
+    assert got.shape == (max_tiles * pre.mx.shape[0],)
+    want, want_n, want_ov = binning.expand_pairs_plain(pre, dq, TX, TY, cfg)
+    assert torch.equal(n_live, want_n) and torch.equal(ov, want_ov)
+    assert torch.equal(_sorted_live(got, n_live), torch.sort(want).values)
+    cases = scene_cases(pre, cfg, want)
     assert all(v > 0 for v in cases.values()) and int(ov) > 0, cases
 
-    sorted_k = rz.sort_pairs(pre, TX, TY, cfg)
-    n = binning.EXPAND.launches
-    binned = rz.bin_gaussians(pre, TX, TY, cfg)
-    assert binning.EXPAND.launches == n + 1
-    monkeypatch.setattr(rz, "expand_pairs", binning.expand_pairs_plain)
-    sorted_p = rz.sort_pairs(pre, TX, TY, cfg)
-    binned_p = rz.bin_gaussians(pre, TX, TY, cfg)
-    assert binning.EXPAND.launches == n + 1
-    for a, b in zip((*sorted_k, *binned), (*sorted_p, *binned_p)):
+    ours, plain = _bin_both(pre, cfg, TX, TY, monkeypatch)
+    assert ours[0].shape == (int(n_live),)
+    for a, b in zip(ours, plain):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("max_tiles", [16, 64])
+@pytest.mark.parametrize("kind", ["none", "full"])
+def test_expand_pairs_kernel_at_the_edges(device, kind, max_tiles, monkeypatch):
+    """No live pair (n_live 0, an empty gid_s, an all -1 table) and every
+    slot live at every offset (n_live = MT·P), as the plain expansion gives
+    them, through `sort_pairs` and `bin_gaussians` too."""
+    from test_torch_expand_pairs import TILES_X as TX, TILES_Y as TY, edge_scene
+
+    pre, cfg = edge_scene(kind, device, max_tiles)
+    dq = rz._depth_quant(pre)
+    got, n_live, ov = binning.expand_pairs(pre, dq, TX, TY, cfg)
+    want, want_n, want_ov = binning.expand_pairs_plain(pre, dq, TX, TY, cfg)
+    assert torch.equal(n_live, want_n) and torch.equal(ov, want_ov)
+    assert int(n_live) == (0 if kind == "none" else max_tiles * pre.mx.shape[0])
+    assert torch.equal(_sorted_live(got, n_live), torch.sort(want).values)
+    ours, plain = _bin_both(pre, cfg, TX, TY, monkeypatch)
+    for a, b in zip(ours, plain):
+        assert torch.equal(a, b)
+    if kind == "none":
+        table = ours[3]
+        assert ours[0].numel() == 0 and torch.equal(table, torch.full_like(table, -1))
+
+
+def test_expand_pairs_kernel_is_repeatable(device):
+    """Five launches on one input: the same live count and, once sorted, the
+    same keys bit for bit, whatever order the warps' atomics gave them."""
+    from test_torch_expand_pairs import TILES_X as TX, TILES_Y as TY, pair_scene
+
+    pre, cfg = pair_scene(5, device, 36, n=20000)
+    dq = rz._depth_quant(pre)
+    first, n0, ov0 = binning.expand_pairs(pre, dq, TX, TY, cfg)
+    ref = _sorted_live(first, n0)
+    assert int(n0) > 0
+    for _ in range(4):
+        keys, n, ov = binning.expand_pairs(pre, dq, TX, TY, cfg)
+        assert torch.equal(n, n0) and torch.equal(ov, ov0)
+        assert torch.equal(_sorted_live(keys, n), ref)
 
 
 @pytest.mark.parametrize("chunk", [32, 64])

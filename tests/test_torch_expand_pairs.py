@@ -2,8 +2,11 @@
 contract on the CPU (it takes the plain version there, and raises on inputs
 the kernel does not take), and the plain version against a frozen copy of
 the loop `rasterize.sort_pairs` ran before the expansion moved into
-`ops/binning.py`. `tests/test_torch_cuda.py` holds the CUDA kernel against
-the plain version on the card, on this file's `pair_scene`. CPU only, no
+`ops/binning.py`: its live keys in the loop's order, their count, and
+`sort_pairs` / `bin_gaussians` over them, on a scene with every case and on
+the two edges (no live pair; every slot live over its whole window).
+`tests/test_torch_cuda.py` holds the CUDA kernel against the plain version
+on the card, on this file's `pair_scene` and `edge_scene`. CPU only, no
 JAX."""
 
 import dataclasses
@@ -54,6 +57,29 @@ def pair_scene(seed, device, max_tiles=36, n=P):
     return pre, cfg
 
 
+def edge_scene(kind, device, max_tiles=36, n=300):
+    """(Preprocessed, cfg) of `pair_scene` with one edge forced: "none", no
+    slot valid (no live pair); "full", every slot valid over the whole image
+    (rects of 13 x 8 tiles, wider than every R up to 8) with a nearly flat
+    conic that passes the gate on every tile, so every slot is live at every
+    one of the R×R offsets (and overflows the window)."""
+    pre, cfg = pair_scene(4, device, max_tiles, n)
+    if kind == "none":
+        return pre._replace(valid=torch.zeros_like(pre.valid)), cfg
+    assert kind == "full", kind
+    full = lambda t, v: torch.full_like(t, v)
+    return pre._replace(valid=torch.ones_like(pre.valid), rmin_x=full(pre.rmin_x, 0),
+                        rmin_y=full(pre.rmin_y, 0), rmax_x=full(pre.rmax_x, TILES_X),
+                        rmax_y=full(pre.rmax_y, TILES_Y), ca=full(pre.ca, 1e-8),
+                        cb=full(pre.cb, 0.0), cc=full(pre.cc, 1e-8),
+                        opacity=full(pre.opacity, 0.9)), cfg
+
+
+def live_keys(keys):
+    """The frozen loop's live keys, in its order: those whose tile < NT."""
+    return keys[(keys >> 48) < TILES_X * TILES_Y]
+
+
 def frozen_loop(pre, tiles_x, tiles_y, cfg):
     """The expansion as `rasterize.sort_pairs` ran it before it moved into
     `binning.expand_pairs_plain`, up to the sort: (combined keys int64
@@ -89,64 +115,125 @@ def frozen_loop(pre, tiles_x, tiles_y, cfg):
     return (key << 32) | gid, overflow_rect
 
 
-def scene_cases(pre, cfg, combined):
-    """How many slots of each case the scene holds, and its live pairs."""
+def scene_cases(pre, cfg, keys):
+    """How many slots of each case the scene holds, and its live pairs
+    (`keys`: the live keys, in any order)."""
     R = binning.offset_window(cfg.max_tiles_per_gaussian)
     w, h = pre.rmax_x - pre.rmin_x, pre.rmax_y - pre.rmin_y
     v = pre.valid
     at_gate = v & (pre.opacity == torch.tensor(cfg.alpha_min, dtype=torch.float32))
-    live = (combined >> 48) < TILES_X * TILES_Y
+    live_slot = torch.zeros_like(v)
+    live_slot[keys & 0xFFFFFFFF] = True
     return {"invalid": int((~v).sum()),
             "clipped": int((v & ((pre.rmin_x == 0) | (pre.rmin_y == 0)
                                  | (pre.rmax_x == TILES_X) | (pre.rmax_y == TILES_Y))).sum()),
             "over_R": int((v & ((w > R) | (h > R))).sum()),
             "at_gate": int(at_gate.sum()),
-            "at_gate_live": int(live.reshape(-1, pre.mx.shape[0])[:, at_gate].any(0).sum()),
-            "live": int(live.sum())}
+            "at_gate_live": int((at_gate & live_slot).sum()),
+            "live": int(keys.numel())}
 
 
 @pytest.mark.parametrize("max_tiles", [16, 36])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_plain_expansion_equals_the_frozen_loop(seed, max_tiles):
-    """Bit for bit, keys and overflow, on a scene holding every case."""
+    """Bit for bit on a scene holding every case: the live keys in the
+    loop's order, their count, and the overflow."""
     pre, cfg = pair_scene(seed, "cpu", max_tiles)
     want, want_ov = frozen_loop(pre, TILES_X, TILES_Y, cfg)
-    got, got_ov = binning.expand_pairs_plain(pre, rz._depth_quant(pre), TILES_X, TILES_Y, cfg)
-    assert got.dtype == torch.int64 and got.shape == (max_tiles * P,)
-    assert torch.equal(got, want) and torch.equal(got_ov, want_ov)
+    got, n_live, got_ov = binning.expand_pairs_plain(pre, rz._depth_quant(pre), TILES_X,
+                                                     TILES_Y, cfg)
+    assert got.dtype == torch.int64 and got.shape == (int(n_live),)
+    assert n_live.dtype == torch.int32 and n_live.shape == ()
+    assert torch.equal(got, live_keys(want)) and torch.equal(got_ov, want_ov)
     cases = scene_cases(pre, cfg, got)
     assert int(got_ov) > 0 and cases["live"] > 0, cases
     assert all(v > 0 for v in cases.values()), cases
+
+
+@pytest.mark.parametrize("max_tiles", [16, 36, 64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_count_is_the_frozen_loops_live_keys(seed, max_tiles):
+    """`n_live` is the number of the frozen loop's keys whose tile < NT, and
+    `keys` is no longer than that."""
+    pre, cfg = pair_scene(seed + 10, "cpu", max_tiles)
+    want, _ = frozen_loop(pre, TILES_X, TILES_Y, cfg)
+    keys, n_live, _ = binning.expand_pairs_plain(pre, rz._depth_quant(pre), TILES_X,
+                                                 TILES_Y, cfg)
+    n = int(((want >> 48) < TILES_X * TILES_Y).sum())
+    assert int(n_live) == n == keys.shape[0] and 0 < n < max_tiles * P
 
 
 def test_cpu_tensors_take_the_plain_version():
     pre, cfg = pair_scene(2, "cpu")
     dq = rz._depth_quant(pre)
     before = binning.EXPAND.launches
-    got, ov = binning.expand_pairs(pre, dq, TILES_X, TILES_Y, cfg)
-    want, want_ov = binning.expand_pairs_plain(pre, dq, TILES_X, TILES_Y, cfg)
+    got, n_live, ov = binning.expand_pairs(pre, dq, TILES_X, TILES_Y, cfg)
+    want, want_n, want_ov = binning.expand_pairs_plain(pre, dq, TILES_X, TILES_Y, cfg)
     assert binning.EXPAND.launches == before
-    assert torch.equal(got, want) and torch.equal(ov, want_ov)
+    assert torch.equal(got, want) and torch.equal(n_live, want_n) and torch.equal(ov, want_ov)
     assert ov.dtype == torch.int32 and ov.shape == ()
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_sort_pairs_sorts_the_expansion(seed):
-    """`sort_pairs` and `bin_gaussians` on the CPU: the frozen loop's keys
-    sorted, cut into tiles, and the table filled from them."""
-    pre, cfg = pair_scene(seed, "cpu")
+def check_sort_pairs(pre, cfg):
+    """`sort_pairs` and `bin_gaussians` against the frozen loop's keys:
+    `gid_s` is the live prefix of their sort (n_binned long), `starts` cuts
+    it into tiles, the table is filled from it. Returns n_binned."""
     keys, ov = frozen_loop(pre, TILES_X, TILES_Y, cfg)
     combined = torch.sort(keys).values
     NT = TILES_X * TILES_Y
+    n = int(((keys >> 48) < NT).sum())
     gid_s, starts, ov_rect = rz.sort_pairs(pre, TILES_X, TILES_Y, cfg)
-    assert torch.equal(gid_s, (combined & 0xFFFFFFFF).to(torch.int32))
+    assert torch.equal(gid_s, (combined[:n] & 0xFFFFFFFF).to(torch.int32))
     bounds = torch.arange(NT + 1, dtype=torch.int32) << 16
     assert torch.equal(starts, torch.searchsorted((combined >> 32).to(torch.int32), bounds,
                                                   out_int32=True))
     assert torch.equal(ov_rect, ov)
     table, counts, n_binned, ov_b, _, _ = rz.bin_gaussians(pre, TILES_X, TILES_Y, cfg)
     assert torch.equal(table, binning.fill_table_plain(gid_s, starts, NT, cfg.tile_capacity))
-    assert int(n_binned) == int(((keys >> 48) < NT).sum()) and torch.equal(ov_b, ov)
+    assert int(n_binned) == n and torch.equal(ov_b, ov)
+    return n, table, counts
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sort_pairs_sorts_the_expansion(seed):
+    """`sort_pairs` and `bin_gaussians` on the CPU: the frozen loop's keys
+    sorted and cut at n_binned, cut into tiles, and the table filled from
+    them."""
+    pre, cfg = pair_scene(seed, "cpu")
+    n, _, _ = check_sort_pairs(pre, cfg)
+    assert 0 < n < cfg.max_tiles_per_gaussian * P
+
+
+@pytest.mark.parametrize("max_tiles", [16, 64])
+@pytest.mark.parametrize("kind", ["none", "full"])
+def test_sort_pairs_at_the_edges(kind, max_tiles):
+    """No live pair: n_binned 0, an empty `gid_s` and an all -1 table.
+    Every slot live over its whole window: n_binned = MT·P."""
+    pre, cfg = edge_scene(kind, "cpu", max_tiles)
+    n, table, counts = check_sort_pairs(pre, cfg)
+    P_edge = pre.mx.shape[0]
+    if kind == "none":
+        assert n == 0 and int(counts.sum()) == 0
+        assert torch.equal(table, torch.full_like(table, -1))
+    else:
+        assert n == max_tiles * P_edge and int(counts.sum()) > 0
+
+
+def test_traced_bin_counts_its_pairs_and_one_sync():
+    """Under tracing a classic bin counts its live pairs (`bin.pairs`, equal
+    to n_binned), its slots × offsets (`bin.slots`), and one host sync
+    against `raster.bin`: the live count's read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sags_tpu_torch.utils import profiling
+
+    pre, cfg = pair_scene(6, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]):
+        n_binned = rz.bin_gaussians(pre, TILES_X, TILES_Y, cfg)[2]
+    rec = profiling.records()
+    assert rec.counter("bin.pairs") == int(n_binned) > 0
+    assert rec.counter("bin.slots") == cfg.max_tiles_per_gaussian * P
+    assert [r.syncs for r in rec.named("raster.bin")] == [1]
 
 
 def _fault(pre, cfg, dq, fault):
