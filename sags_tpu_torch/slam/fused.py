@@ -28,18 +28,11 @@ from sags_tpu_torch.ops import gicp as gicp_ops
 from sags_tpu_torch.slam import step as slam_step_mod
 from sags_tpu_torch.utils.profiling import span
 
-# metrics ring-buffer columns
-MET_LOSS = 0
-MET_N_BINNED = 1
-MET_OV_TILE = 2
-MET_OV_RECT = 3
-MET_OV_WINDOW = 4
-MET_OV_BIG = 5
-MET_N_TRACKABLE = 6
-MET_TRAINED = 7
-MET_TILE_PEAK = 8
-MET_OV_TILE_LIVE = 9
-MET_COLS = 10
+# metrics ring columns: the step's host row (`step.HOST_FIELDS`), then the
+# frame's trackable count and 1 where the frame trained
+MET_N_TRACKABLE = len(slam_step_mod.HOST_FIELDS)
+MET_TRAINED = MET_N_TRACKABLE + 1
+MET_COLS = MET_TRAINED + 1
 
 
 class TrackState(NamedTuple):
@@ -186,13 +179,8 @@ class FusedFrontend:
     def _train_and_metrics(self, state, track, camera, image, objects):
         cfg = self.cfg
         state, sm = slam_step_mod.slam_step(state, camera, image, objects, cfg, self.mesh)
-        f = lambda x: x.to(torch.float32).reshape(())
-        row = torch.stack([
-            f(sm.loss), f(sm.n_binned), f(sm.overflow_tile), f(sm.overflow_rect),
-            f(sm.overflow_window), f(sm.overflow_big),
-            f(_n_trackable(state.map, cfg)), torch.ones((), device=sm.loss.device),
-            f(sm.tile_peak), f(sm.overflow_tile_live),
-        ])
+        row = slam_step_mod.host_row(sm, _n_trackable(state.map, cfg),
+                                     torch.ones((), device=sm.loss.device))
         return state, _write_row(track, row)
 
     def _idle_metrics(self, state, track):

@@ -85,29 +85,9 @@ class PipelineResult:
     frame_times: List[float] = dataclasses.field(default_factory=list)
 
 
-@dataclasses.dataclass
-class _HostMetrics:
-    loss: float
-    n_binned: int
-    overflow_tile: int
-    overflow_rect: int
-    overflow_window: int
-    overflow_big: int
-    tile_peak: int = 0
-    overflow_tile_live: int = 0
-
-
 def _lattice256(peak) -> int:
     """1.25× headroom over a peak need, rounded up to the 256-lattice."""
     return -(-int(peak * 1.25) // 256) * 256
-
-
-def _pack_metrics(m: slam_step_mod.StepMetrics) -> torch.Tensor:
-    """The scalars the host reads after a training step, as one [8] float32
-    tensor: one fetch."""
-    return torch.stack([x.to(torch.float32).reshape(()) for x in (
-        m.loss, m.n_binned, m.overflow_tile, m.overflow_rect, m.overflow_window,
-        m.overflow_big, m.tile_peak, m.overflow_tile_live)])
 
 
 def camera_for(cfg: SLAMConfig, frame: Frame, pose: np.ndarray, device) -> Camera:
@@ -256,26 +236,24 @@ class SLAMPipeline:
             self.cfg = self.cfg.replace(raster=dataclasses.replace(r, **kw))
             self._rebuild_frontend()
 
-    def _maybe_grow_capacity(self, metrics: _HostMetrics) -> None:
-        """Overflow-adaptive render capacities: three strikes in a row grow
-        tile_capacity (to 1.25× the peak need), the binning window (rect),
-        and the windowed budgets (window, big: one probe; doubling when there
-        is nothing to probe or the probe changes nothing)."""
-        binned = max(int(metrics.n_binned), 1)
-        thresh = 0.001 * binned
-        over = {
-            "tile": int(metrics.overflow_tile_live) > thresh,
-            "rect": int(metrics.overflow_rect) > thresh,
-            "window": int(metrics.overflow_window) > thresh,
-            "big": int(metrics.overflow_big) > thresh,
-        }
+    def _maybe_grow_capacity(self, row: np.ndarray) -> None:
+        """Overflow-adaptive render capacities, from one step's host row
+        (`step.HOST_FIELDS`): three strikes in a row grow tile_capacity (to
+        1.25× the peak need), the binning window (rect), and the windowed
+        budgets (window, big: one probe; doubling when there is nothing to
+        probe or the probe changes nothing)."""
+        v = lambda name: int(row[slam_step_mod.HOST_COL[name]])
+        thresh = 0.001 * max(v("n_binned"), 1)
+        over = {kind: v(name) > thresh for kind, name in (
+            ("tile", "overflow_tile_live"), ("rect", "overflow_rect"),
+            ("window", "overflow_window"), ("big", "overflow_big"))}
         self._overflow_strikes = self._overflow_strikes + 1 if any(over.values()) else 0
         if self._overflow_strikes < 3:
             return
         r = self.cfg.raster
         kw = {}
         if over["tile"] and r.tile_capacity < r.tile_capacity_max:
-            need = _lattice256(metrics.tile_peak)
+            need = _lattice256(v("tile_peak"))
             if need > r.tile_capacity:
                 kw["tile_capacity"] = min(need, r.tile_capacity_max)
         if over["rect"]:
@@ -301,16 +279,22 @@ class SLAMPipeline:
         if kw:
             self._adapt(r, **kw)
 
-    def _maybe_shrink_capacity(self, peak: int, overflow_free: bool,
-                               units: int = 1) -> None:
+    def _maybe_shrink_capacity(self, rows: np.ndarray) -> None:
         """One 256-lattice step down after 4·metrics_interval quiet trained
-        frames, never below 1.25× the observed peak."""
+        frames, never below 1.25× the observed peak. `rows` [n, ≥8]: the
+        host rows (`step.HOST_FIELDS`) of the n steps trained since the last
+        call."""
+        col = slam_step_mod.HOST_COL
         r = self.cfg.raster
-        target = max(256, _lattice256(peak), r.tile_capacity - 256)
+        target = max(256, _lattice256(int(rows[:, col["tile_peak"]].max())),
+                     r.tile_capacity - 256)
+        overflows = [col[f] for f in ("overflow_tile_live", "overflow_rect",
+                                      "overflow_window", "overflow_big")]
+        overflow_free = not rows[:, overflows].astype(np.int64).any()
         if not (overflow_free and target < r.tile_capacity):
             self._quiet_shrink = 0
             return
-        self._quiet_shrink += max(units, 1)
+        self._quiet_shrink += len(rows)
         if self._quiet_shrink < 4 * max(self.cfg.metrics_interval, 1):
             return
         self._quiet_shrink = 0
@@ -500,17 +484,11 @@ class SLAMPipeline:
         in one packed fetch and drive the capacity adaptation."""
         self.state, metrics = slam_step_mod.slam_step(self.state, kf.camera, kf.image,
                                                       kf.objects, self.cfg, self.mesh)
-        vals = host_read(torch.Tensor.cpu, _pack_metrics(metrics)).numpy()
-        self.losses.append(float(vals[0]))
+        row = host_read(torch.Tensor.cpu, slam_step_mod.host_row(metrics)).numpy()
+        self.losses.append(float(row[slam_step_mod.HOST_COL["loss"]]))
         self.train_iter += 1
-        overflow = [int(vals[i]) for i in (2, 3, 4, 5)]
-        live = int(vals[7])
-        self._maybe_grow_capacity(_HostMetrics(
-            loss=float(vals[0]), n_binned=int(vals[1]), overflow_tile=overflow[0],
-            overflow_rect=overflow[1], overflow_window=overflow[2],
-            overflow_big=overflow[3], tile_peak=int(vals[6]), overflow_tile_live=live))
-        self._maybe_shrink_capacity(int(vals[6]),
-                                    live == 0 and all(o == 0 for o in overflow[1:]))
+        self._maybe_grow_capacity(row)
+        self._maybe_shrink_capacity(row[None])
         return metrics
 
     def _frame_modules(self, df, frame: Frame, frame_idx: int) -> torch.Tensor:
@@ -666,31 +644,14 @@ class SLAMPipeline:
         M = buf.shape[0]
         if k > M:
             raise RuntimeError(f"metrics drain fell {k} rows behind a ring of {M}")
-        start = self._drained_mi % M
-        peak, overflow_free, trained_rows = 0, True, 0
-        for j in range(k):
-            r = buf[(start + j) % M]
-            if r[fused_mod.MET_TRAINED] > 0.5:
-                self.losses.append(float(r[fused_mod.MET_LOSS]))
-                self.train_iter += 1
-                trained_rows += 1
-                peak = max(peak, int(r[fused_mod.MET_TILE_PEAK]))
-                overflow_free &= (int(r[fused_mod.MET_OV_TILE_LIVE]) == 0
-                                  and int(r[fused_mod.MET_OV_RECT]) == 0
-                                  and int(r[fused_mod.MET_OV_WINDOW]) == 0
-                                  and int(r[fused_mod.MET_OV_BIG]) == 0)
-                self._maybe_grow_capacity(_HostMetrics(
-                    loss=float(r[fused_mod.MET_LOSS]),
-                    n_binned=int(r[fused_mod.MET_N_BINNED]),
-                    overflow_tile=int(r[fused_mod.MET_OV_TILE]),
-                    overflow_rect=int(r[fused_mod.MET_OV_RECT]),
-                    overflow_window=int(r[fused_mod.MET_OV_WINDOW]),
-                    overflow_big=int(r[fused_mod.MET_OV_BIG]),
-                    tile_peak=int(r[fused_mod.MET_TILE_PEAK]),
-                    overflow_tile_live=int(r[fused_mod.MET_OV_TILE_LIVE]),
-                ))
-        if trained_rows:
-            self._maybe_shrink_capacity(peak, overflow_free, units=trained_rows)
+        rows = buf[(self._drained_mi + np.arange(k)) % M]
+        trained = rows[rows[:, fused_mod.MET_TRAINED] > 0.5]
+        for r in trained:
+            self.losses.append(float(r[slam_step_mod.HOST_COL["loss"]]))
+            self.train_iter += 1
+            self._maybe_grow_capacity(r)
+        if len(trained):
+            self._maybe_shrink_capacity(trained)
         self._drained_mi = end_mi
 
     # ------------------------------------------------------------------

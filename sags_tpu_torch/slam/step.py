@@ -57,6 +57,21 @@ class StepMetrics(NamedTuple):
     overflow_tile_live: torch.Tensor
 
 
+# the scalars the host reads after a step, in their column order: one row a
+# step (`host_row`), fetched at once by the per-module front-end and leading
+# each row of the fused front-end's metrics ring
+HOST_FIELDS = ("loss", "n_binned", "overflow_tile", "overflow_rect", "overflow_window",
+               "overflow_big", "tile_peak", "overflow_tile_live")
+HOST_COL = {name: i for i, name in enumerate(HOST_FIELDS)}
+
+
+def host_row(m: StepMetrics, *extra: torch.Tensor) -> torch.Tensor:
+    """`HOST_FIELDS` of `m`, then the scalars `extra`, as one float32 row
+    (one stack)."""
+    return torch.stack([x.to(torch.float32).reshape(())
+                        for x in (*(getattr(m, f) for f in HOST_FIELDS), *extra)])
+
+
 def init_state(cfg: SLAMConfig, seed: int = 0, capacity: Optional[int] = None,
                device=None, draws=None) -> SLAMState:
     """Empty map, zeroed Adam moments, a freshly drawn classifier. `draws`

@@ -2,7 +2,7 @@
 `serve_viewer`), the native host library's loader (`io/native.py`),
 `utils/profiling.py`, `utils/general.py` and `viz/rerun_viz.py` against
 `sags_tpu` and `tests/test_aux.py` / `tests/test_native.py`. The fake
-viewer and its requests are `chip_smoke.py`'s (its sources phase (d))."""
+viewer and its requests are `torch_support`'s."""
 
 import os
 import random
@@ -19,7 +19,6 @@ from sags_tpu.utils import general as jgeneral
 from sags_tpu.utils import profiling as jprof
 from sags_tpu.viz import network_gui as jgui
 from sags_tpu.viz import rerun_viz as jrerun
-from chip_smoke import sibr_request, swapped, unflip, viewer_client
 from sags_tpu_torch.cli import main as tcli
 from sags_tpu_torch.core.camera import make_camera
 from sags_tpu_torch.core.config import MapConfig, SLAMConfig
@@ -31,6 +30,7 @@ from sags_tpu_torch.utils import profiling as tprof
 from sags_tpu_torch.utils.draws import TorchDraws
 from sags_tpu_torch.viz import network_gui as tgui
 from sags_tpu_torch.viz import rerun_viz as trerun
+from torch_support import sibr_request, unflip, viewer_client
 
 torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
 
@@ -136,7 +136,7 @@ def test_native_available_and_built_outside_native():
     assert os.path.dirname(native.lib_path()) != os.path.dirname(native.SOURCE)
 
 
-def test_native_voxel_downsample_semantics_and_fallback():
+def test_native_voxel_downsample_semantics_and_fallback(monkeypatch):
     rng = np.random.default_rng(0)
     pts = rng.uniform(0, 4, (2000, 3)).astype(np.float32)
     out = native.voxel_downsample(pts, 2.0)
@@ -148,8 +148,8 @@ def test_native_voxel_downsample_semantics_and_fallback():
         sel = (np.floor(pts / 2.0) == cell).all(1)
         np.testing.assert_allclose(c, pts[sel].mean(0), atol=1e-4)
     # the fallback (the port's voxel grid) gives the same set of centroids
-    with swapped(native, "_library", lambda: None):
-        fb = native.voxel_downsample(pts, 2.0, device="cpu")
+    monkeypatch.setattr(native, "_library", lambda: None)
+    fb = native.voxel_downsample(pts, 2.0, device="cpu")
     key = lambda a: a[np.lexsort(np.floor(a / 2.0).T[::-1])]
     np.testing.assert_allclose(key(fb), key(out), atol=1e-5)
 
@@ -165,7 +165,7 @@ def test_native_kdtree_knn_exact():
     assert idx.dtype == np.int32 and np.array_equal(idx, bf)
 
 
-def test_native_decode_xyzrgb_and_fallback():
+def test_native_decode_xyzrgb_and_fallback(monkeypatch):
     rng = np.random.default_rng(0)
     n, step = 100, 32
     raw = bytearray(n * step)
@@ -178,8 +178,8 @@ def test_native_decode_xyzrgb_and_fallback():
     got_xyz, got_rgb = native.decode_xyzrgb(bytes(raw), step, 0, 16)
     np.testing.assert_array_equal(got_xyz, xyz)
     np.testing.assert_allclose(got_rgb, cols / 255.0, atol=1e-6)
-    with swapped(native, "_library", lambda: None):
-        fb_xyz, fb_rgb = native.decode_xyzrgb(bytes(raw), step, 0, 16)
+    monkeypatch.setattr(native, "_library", lambda: None)
+    fb_xyz, fb_rgb = native.decode_xyzrgb(bytes(raw), step, 0, 16)
     assert np.array_equal(fb_xyz, got_xyz) and np.array_equal(fb_rgb, got_rgb)
 
 

@@ -27,7 +27,7 @@ from sags_tpu_torch.mapping import gaussian_map as tgm
 from sags_tpu_torch.slam import checkpoint as tckpt
 from sags_tpu_torch.slam import step as t_step
 from sags_tpu_torch.utils import traj as ttraj
-from chip_smoke import assert_states_bitwise
+from torch_support import assert_states_bitwise
 from test_torch_step import W, H, configs, jax_state_to_numpy, scene
 
 torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small shapes, and the port's device code on the card against the CPU. A
-CUDA kernel has no CPU mode, so every kernel test here needs an NVIDIA GPU
-with `nvcc` and skips elsewhere (the library-hash test runs anywhere). This
-file imports no JAX, so it runs on a machine without it:
+at small shapes, the port's device code on the card against the CPU, and
+the kernel launches and host syncs of the SLAM loop and the offline trainer
+on the card. A CUDA kernel has no CPU mode, so every kernel test here needs
+an NVIDIA GPU with `nvcc` and skips elsewhere (the library-hash test runs
+anywhere). This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -742,12 +743,13 @@ def test_voxel_map_on_the_card_is_repeatable_and_matches_the_cpu(device):
                                        atol=1e-5 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("align", ["vgicp_align", "gicp_align_st"])
+@pytest.mark.parametrize("align", ["vgicp_align", "gicp_align_st", "ndt_align"])
 def test_registration_on_the_card_matches_the_cpu(device, align):
-    """`vgicp_align` and `gicp_align_st` on the card against the CPU: the
-    same iteration counts and convergence, the pose within 1e-5."""
+    """`vgicp_align`, `gicp_align_st` and `ndt_align` (P2D) on the card
+    against the CPU: the same iteration counts and convergence, the pose
+    within 1e-5."""
     from sags_tpu_torch.core.config import GICPConfig
-    from sags_tpu_torch.ops import gicp
+    from sags_tpu_torch.ops import gicp, ndt
 
     src, tgt = _registration_pair()
     cfg = GICPConfig(knn_max_distance=2.0, voxel_resolution=0.5)
@@ -755,8 +757,8 @@ def test_registration_on_the_card_matches_the_cpu(device, align):
     for dev in (torch.device("cpu"), device):
         t = lambda a: torch.as_tensor(a, device=dev)
         mask = torch.ones(len(src), dtype=torch.bool, device=dev)
-        res[dev.type] = getattr(gicp, align)(t(src), t(tgt), mask, mask,
-                                             torch.eye(4, device=dev), cfg)
+        res[dev.type] = getattr(ndt if align == "ndt_align" else gicp, align)(
+            t(src), t(tgt), mask, mask, torch.eye(4, device=dev), cfg)
     g, c = res["cuda"], res["cpu"]
     assert (g.iterations, g.converged) == (c.iterations, c.converged)
     torch.testing.assert_close(g.T.cpu(), c.T, atol=1e-5, rtol=0)
@@ -840,7 +842,7 @@ def test_checkpoint_on_the_card_is_bitwise(device, tmp_path):
     """A stepped state written on the card reads back bitwise (tensors, host
     counters, the generator state); one `slam_step` from each gives bitwise
     equal states; read on the CPU, the tensors are the same numbers."""
-    from chip_smoke import assert_states_bitwise
+    from torch_support import assert_states_bitwise
     from sags_tpu_torch.core.config import MapConfig, SemanticsConfig, SLAMConfig
     from sags_tpu_torch.slam import checkpoint
     from sags_tpu_torch.slam import step as slam_step
@@ -913,15 +915,14 @@ def test_robust_inv3_on_the_card_matches_the_cpu(device):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
-def test_native_library_against_its_fallback_on_the_card(device):
+def test_native_library_against_its_fallback_on_the_card(device, monkeypatch):
     """The native host library (built into the port's build directory)
     against its fallbacks run on the card: the same voxel centroids within
     1e-5, kNN distances within 1e-5 plus the float32 rounding of the
-    fallback's |q|^2 + |p|^2 - 2 q.p (`chip_smoke.knn_bar`) and the same
-    neighbours, the decode bitwise (`chip_smoke.py`'s sources phase (e) at a
-    small size)."""
-    from chip_smoke import knn_bar, swapped
+    fallback's |q|^2 + |p|^2 - 2 q.p (`torch_support.knn_bar`) and the same
+    neighbours, the decode bitwise."""
     from sags_tpu_torch.io import native
+    from torch_support import knn_bar
 
     assert native.available(), native.build_error
     rng = np.random.default_rng(0)
@@ -932,10 +933,10 @@ def test_native_library_against_its_fallback_on_the_card(device):
     raw[:, :3] = pts[:64]
     raw[:, 4] = rng.integers(0, 1 << 24, 64).astype(np.uint32).view(np.float32)
     dec_n = native.decode_xyzrgb(raw.tobytes(), 32)
-    with swapped(native, "_library", lambda: None):
-        ds_f = native.voxel_downsample(pts, 0.5, device=device)
-        d2_f, idx_f = native.KDTree(pts, device=device).knn(pts[:128], 6)
-        dec_f = native.decode_xyzrgb(raw.tobytes(), 32)
+    monkeypatch.setattr(native, "_library", lambda: None)
+    ds_f = native.voxel_downsample(pts, 0.5, device=device)
+    d2_f, idx_f = native.KDTree(pts, device=device).knn(pts[:128], 6)
+    dec_f = native.decode_xyzrgb(raw.tobytes(), 32)
     order = lambda a: a[np.lexsort(np.floor(a / 0.5).T)]
     assert len(ds_n) == len(ds_f)
     np.testing.assert_allclose(order(ds_n), order(ds_f), atol=1e-5, rtol=0)
@@ -951,13 +952,13 @@ def test_viewer_request_on_the_card_is_render_map(device):
     one `composite_windowed` launch)."""
     import threading
 
-    from chip_smoke import launch_counts, sibr_request, unflip, viewer_client
     from sags_tpu_torch.cli.main import serve_viewer
     from sags_tpu_torch.core.config import MapConfig, SLAMConfig
     from sags_tpu_torch.mapping import gaussian_map as gm
     from sags_tpu_torch.slam.step import render_map
     from sags_tpu_torch.utils.draws import TorchDraws
     from sags_tpu_torch.viz.network_gui import MiniCam, NetworkGUI
+    from torch_support import launch_counts, sibr_request, unflip, viewer_client
 
     means, _, _, _, colors, _ = (t.to(device) for t in _scene(6, n=300))
     m = gm.init_map(512, MapConfig(initial_scale=0.08), device)
@@ -989,6 +990,138 @@ def test_viewer_request_on_the_card_is_render_map(device):
     want = np.clip(color * 255, 0, 255).astype(np.uint8).transpose(1, 2, 0)
     (img, verify), = out["replies"]
     assert verify == "ok" and img == np.ascontiguousarray(want).tobytes() and want.max() > 0
+
+
+def _loop(device, n_frames=6, imu_substeps=0, **kw):
+    """A tiny SLAM loop on `device`: its `SLAMConfig` (64x48 frames,
+    512-point scans, a 4096-slot map, a keyframe every 2nd frame and replay
+    between, so every frame trains; `kw` over its fields) and its frames."""
+    from sags_tpu_torch.core.config import (GICPConfig, KeyframeConfig, MapConfig,
+                                            SemanticsConfig, SLAMConfig, TrackingConfig)
+    from sags_tpu_torch.io.datasets import SyntheticDataset
+
+    cfg = SLAMConfig(
+        raster=RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=128, chunk=32),
+        map=MapConfig(initial_capacity=4096, initial_scale=0.08),
+        semantics=SemanticsConfig(cls3d_sample=32, num_classes=24),
+        keyframes=KeyframeConfig(keyframe_freq=2, window=8),
+        tracking=TrackingConfig(backend="gicp", max_points=512),
+        gicp=GICPConfig(max_iterations=24, knn_max_distance=2.0),
+        post_train_iters=0, metrics_interval=2).replace(**kw)
+    frames = list(SyntheticDataset(n_frames=n_frames, width=W, height=H, n_world=4096,
+                                   pts_per_frame=512, step=0.1, clutter=0.3,
+                                   imu_substeps=imu_substeps, device=device))
+    return cfg, frames
+
+
+# the compositors a training step launches once on each render path
+STEP_KERNELS = {"classic": ("sags_expand_pairs", "sags_fill_table", "sags_composite_fused",
+                            "sags_composite_fused_bwd"),
+                "windowed": ("sags_composite_windowed", "sags_composite_windowed_bwd")}
+
+
+@pytest.mark.parametrize("frontend,path", [("fused", "classic"), ("modules", "classic"),
+                                           ("fused", "windowed")])
+def test_slam_loop_on_the_card_launches_each_kernel_once_a_step(device, frontend, path):
+    """`SLAMPipeline.run` over six frames on the card: one finite loss a
+    frame, read from the fused front-end's metrics ring or the per-module
+    front-end's host row, and each kernel of the render path launched once
+    a training step; the windowed path never launches the classic
+    compositors."""
+    from sags_tpu_torch.slam.pipeline import SLAMPipeline
+    from torch_support import launch_counts
+
+    cfg, frames = _loop(device, fused_frontend=frontend == "fused")
+    if path == "windowed":
+        cfg = cfg.replace(raster=dataclasses.replace(cfg.raster, chunk=16, train_windowed=True,
+                                                     windowed_big_capacity=64))
+    pipe = SLAMPipeline(cfg, point_budget=512, rng_seed=0, device=device)
+    _build.reset_launch_counts()
+    res = pipe.run(frames, post_train=0)
+    counts = launch_counts()
+    assert res.train_iters == len(res.losses) == len(frames)
+    assert np.isfinite(res.losses).all()
+    for sym in STEP_KERNELS[path]:
+        assert counts[sym] == res.train_iters, (sym, counts)
+    if path == "windowed":
+        assert counts["sags_composite_fused"] == counts["sags_composite_fused_bwd"] == 0
+
+
+# the functions a sync is charged to: the innermost of these on its stack
+SYNC_STAGES = ("_track_esikf", "_track", "slam_step", "_train_once", "add_frame_points",
+               "_maybe_grow_map")
+
+
+@pytest.mark.parametrize("backend", ["esikf", "gicp"])
+def test_per_module_frame_on_the_card_syncs_once_a_step(device, backend, monkeypatch):
+    """The per-module front-end on the card under
+    `torch.cuda.set_sync_debug_mode("warn")`, every sync charged to the
+    innermost of `SYNC_STAGES` on its stack: each frame's training step
+    reads its scalars in one fetch (`_train_once`, one host row), and the
+    ESIKF tracker reads nothing once its surfel map is live and its
+    bootstrap done (frame 2 on)."""
+    import traceback
+    import warnings
+
+    from sags_tpu_torch.slam.pipeline import SLAMPipeline
+
+    cfg, frames = _loop(device, imu_substeps=5, fused_frontend=False)
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, backend=backend))
+    pipe = SLAMPipeline(cfg, point_budget=512, rng_seed=0, device=device)
+    per_frame = []
+    frame_modules = pipe._frame_modules
+
+    def counted_frame(*a, **k):
+        per_frame.append({})
+        return frame_modules(*a, **k)
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message) and per_frame:
+            names = [f.name for f in traceback.extract_stack()[:-1]]
+            stage = next((n for n in reversed(names) if n in SYNC_STAGES), "other")
+            per_frame[-1][stage] = per_frame[-1].get(stage, 0) + 1
+
+    monkeypatch.setattr(pipe, "_frame_modules", counted_frame)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        monkeypatch.setattr(warnings, "showwarning", show)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = pipe.run(frames, post_train=0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert len(per_frame) == res.train_iters == len(frames)
+    assert np.isfinite(res.losses).all()
+    assert [c.get("_train_once", 0) for c in per_frame] == [1] * len(frames), per_frame
+    if backend == "esikf":
+        assert all(c.get("_track_esikf", 0) == 0 for c in per_frame[2:]), per_frame
+
+
+def test_offline_trainer_on_the_card_launches_each_kernel_once_an_iteration(device):
+    """`train_offline` on the card over three frames for 8 iterations, with
+    densification at 4 and 8 and the opacity reset at 8: finite losses,
+    each classic kernel launched once an iteration and no other kernel."""
+    from sags_tpu_torch.core.config import MapConfig, OptimizationConfig, SLAMConfig
+    from sags_tpu_torch.io.datasets import SyntheticDataset
+    from sags_tpu_torch.slam import offline
+    from torch_support import launch_counts
+
+    cfg = SLAMConfig(
+        raster=RasterizeConfig(max_tiles_per_gaussian=16, tile_capacity=128, chunk=32),
+        map=MapConfig(initial_capacity=8192),
+        opt=OptimizationConfig(feature_lr=0.05, opacity_lr=0.1, scaling_lr=0.02,
+                               densify_grad_threshold=1e-4, densify_from_iter=4,
+                               densification_interval=4, opacity_reset_interval=8))
+    frames = list(SyntheticDataset(n_frames=3, width=96, height=64, n_world=1500,
+                                   pts_per_frame=600, step=0.2, device=device))
+    iterations = 8
+    _build.reset_launch_counts()
+    _, losses = offline.train_offline(frames, cfg, iterations, capacity=4096, seed=0,
+                                      device=device)
+    counts = launch_counts()
+    assert len(losses) == iterations and np.isfinite(losses).all()
+    assert {s: n for s, n in counts.items() if n} == dict.fromkeys(STEP_KERNELS["classic"],
+                                                                   iterations)
 
 
 def test_header_edit_changes_the_library_hash(monkeypatch, tmp_path):

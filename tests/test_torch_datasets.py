@@ -20,6 +20,7 @@ from sags_tpu_torch.io import datasets as tds
 from sags_tpu_torch.io import images
 from test_kitti_traj import _write_kitti_seq
 from test_torch_cli import CHAIN_ATOL, POSE_ATOL, last_json
+import torch_support
 
 torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
 
@@ -340,16 +341,14 @@ def stream(tmp_path_factory):
 
 @pytest.mark.parametrize("name", ["tum", "replica"])
 def test_stream_as_tum_or_replica_reads_back_and_runs(stream, name, tmp_path, capsys):
-    """`chip_smoke.py`'s TUM and Replica writers (its sources phase (b)):
-    both packages' readers give the same frames, the images and depths are
-    the written ones to their quantization, the poses the stream's (Replica
-    bitwise, TUM through its quaternion within 1e-6); run-slam on the
-    directory (a list source, so it evaluates) reports finite metrics."""
-    import chip_smoke
-
+    """The TUM and Replica writers of `torch_support`: both packages'
+    readers give the same frames, the images and depths are the written
+    ones to their quantization, the poses the stream's (Replica bitwise,
+    TUM through its quaternion within 1e-6); run-slam on the directory (a
+    list source, so it evaluates) reports finite metrics."""
     frames, ck = stream
-    writer, scale = {"tum": (chip_smoke.write_tum, 5000.0),
-                     "replica": (chip_smoke.write_replica, 6553.5)}[name]
+    writer, scale = {"tum": (torch_support.write_tum, 5000.0),
+                     "replica": (torch_support.write_replica, 6553.5)}[name]
     writer(str(tmp_path), frames)
     t_cls, j_cls = {"tum": (tds.TUMDataset, jds.TUMDataset),
                     "replica": (tds.ReplicaDataset, jds.ReplicaDataset)}[name]
@@ -357,7 +356,7 @@ def test_stream_as_tum_or_replica_reads_back_and_runs(stream, name, tmp_path, ca
     _frames_equal(back, list(j_cls(str(tmp_path))), pose_atol=1e-6)
     assert len(back) == 3
     for f, b in zip(frames, back):
-        rgb, d16 = chip_smoke.quantized(f, scale)
+        rgb, d16 = torch_support.quantized(f, scale)
         assert np.array_equal(b.image, rgb.transpose(2, 0, 1).astype(np.float32) / 255.0)
         assert np.array_equal(b.depth, d16.astype(np.float32) / np.float32(scale))
         np.testing.assert_allclose(b.pose, f.pose, atol=1e-6 if name == "tum" else 0, rtol=0)
@@ -371,13 +370,11 @@ def test_stream_as_tum_or_replica_reads_back_and_runs(stream, name, tmp_path, ca
 
 
 def test_stream_as_kitti_reads_back(stream, tmp_path):
-    """`chip_smoke.py`'s KITTI writer (its sources phase (c)): the scans come
-    back bitwise and the poses, through the calib's non-identity Tr, within
-    1e-6 of the stream's, in both packages' readers."""
-    import chip_smoke
-
+    """The KITTI writer of `torch_support`: the scans come back bitwise and
+    the poses, through the calib's non-identity Tr, within 1e-6 of the
+    stream's, in both packages' readers."""
     frames, _ = stream
-    kp = chip_smoke.write_kitti(str(tmp_path), frames)
+    kp = torch_support.write_kitti(str(tmp_path), frames)
     kw = dict(poses_file=kp["poses.txt"], times_file=kp["times.txt"],
               calib_file=kp["calib.txt"])
     back = list(tds.KITTIOdometryDataset(kp["velodyne"], **kw))

@@ -26,7 +26,8 @@ from sags_tpu_torch import interop
 from sags_tpu_torch.core import config as tconf
 from sags_tpu_torch.eval import metrics as tmetrics
 from sags_tpu_torch.io.datasets import Frame as TorchFrame
-from sags_tpu_torch.slam.pipeline import Keyframe, SLAMPipeline, _HostMetrics
+from sags_tpu_torch.slam.pipeline import Keyframe, SLAMPipeline
+from sags_tpu_torch.slam.step import HOST_FIELDS
 from test_torch_step import jax_state_to_numpy
 
 torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py
@@ -136,7 +137,7 @@ def test_windowed_budget_growth_matches_jax(world, kind, probe):
              overflow_big=50 if kind == "big" else 0, tile_peak=64, overflow_tile_live=0)
     for _ in range(3):
         jp._maybe_grow_capacity(types.SimpleNamespace(**m))
-        tp._maybe_grow_capacity(_HostMetrics(**m))
+        tp._maybe_grow_capacity(np.array([m[f] for f in HOST_FIELDS], np.float32))
     jr, tr = jp.cfg.raster, tp.cfg.raster
     assert tr != before
     for f in dataclasses.fields(tr):

@@ -1,8 +1,7 @@
 """Port parity: `io/rosbag.py` (the ROS1 bag reader and writer, the four
 message codecs, the approximate-time synchronizer, `RosbagDataset`) against
 `sags_tpu.io.rosbag` on seeded messages, and `run-slam --dataset rosbag`
-of both packages' CLIs on one tiny bag (written by `chip_smoke.write_rosbag`,
-the sources phase's writer)."""
+of both packages' CLIs on one tiny bag (written by `torch_support.write_rosbag`)."""
 
 import bz2
 import contextlib
@@ -21,7 +20,7 @@ from sags_tpu_torch.io import rosbag as trb
 from sags_tpu_torch.io.datasets import SyntheticDataset
 from sags_tpu_torch.slam import checkpoint as tckpt
 from sags_tpu_torch.slam import step as t_step
-from chip_smoke import write_rosbag
+from torch_support import write_rosbag
 from test_torch_cli import POSE_ATOL, RUN_SLAM_KEYS, tiny_config
 
 torch.set_num_threads(1)  # one intra-op thread per test process: see test_torch_core.py

@@ -1,8 +1,8 @@
 """Where the time of the PyTorch port's eval render goes, on one CUDA card.
 
-Builds `chip_smoke.py`'s map (the SLAM loop cell: 48 frames at 640x512),
-then, for each render mode of `chip_smoke.py`'s eval phase (windowed with
-the host table, windowed with the kernel sort, classic), renders the eval
+Builds the SLAM loop's map (`profile_torch_slam.loop_cell`: 48 frames at
+640x512), then, for each render mode of `SLAMPipeline.evaluate` (windowed
+with the host table, windowed with the kernel sort, classic), renders the eval
 poses once to warm up and traces them with
 `sags_tpu_torch.utils.profiling.trace` (the Chrome trace and `spans.json`
 in `build/profile/eval_<mode>/`). Prints one JSON line per mode, a render's
@@ -36,14 +36,14 @@ def main():
 
     import torch
 
-    import chip_smoke
+    from profile_torch_slam import loop_cell
     from sags_tpu_torch import resolve_device
     from sags_tpu_torch.slam import step as slam_step
     from sags_tpu_torch.slam.pipeline import SLAMPipeline
     from sags_tpu_torch.utils import profiling
 
     device = resolve_device("cuda")
-    cfg, frames, _ = chip_smoke.slam_setup(device, 48)
+    cfg, frames = loop_cell(device, 48)
     pipe = SLAMPipeline(cfg, point_budget=cfg.tracking.max_points, rng_seed=0,
                         device=device)
     res = pipe.run(frames, post_train=0)
