@@ -47,7 +47,15 @@ Phases, each failing the run (non-zero exit, no result line):
        loop's and to the sort of every slot and offset's key cut at
        n_binned; its time from a CUDA graph beside its byte bound and the
        plain loop's time; sort_pairs end to end beside the sort of every
-       key.
+       key;
+     - the GICP align (a kernel that replaces no TPU kernel) on a corridor
+       scan pair at the stream's shape (4096 x 4096, ungated, the stream's
+       GICP settings, from the identity): the same (outer, inner)
+       iterations and convergence as its plain version (`lsq_align` on the
+       card) and the pose within 2e-4 m at the farthest source point; its
+       time beside the plain version's and its bound, the latency of its
+       grid barriers (one a linearization and one a trial), with the
+       nearest-neighbour pass's operations and bytes.
 The line before the last, `{"kernels": [...]}`, holds one row a kernel:
 its `ms` and `library_ms`, device time from a CUDA graph of its launches
 (`graph_ms`); its `stream_ms` and `plain_ms`, back-to-back launches from
@@ -959,6 +967,124 @@ def variant_checks(pre, objs, cfg, tiles_x, tiles_y, kw, acc, T, acc_s, sargs, s
     return res
 
 
+# the stream cells' scan-to-scan align: 4096 source and 4096 target points
+GICP_SHAPE = (4096, 4096)
+# float32 operations of one distance of the nearest-neighbour pass: the dot
+# product (5), the norms' sum and the difference (2), the doubling (1) and
+# the comparison (1)
+NN_OPS = 9
+# bytes of a point a linearization reads once: its position, mask and covariance
+GICP_POINT_BYTES = 12 + 1 + 36
+
+
+def corridor_scans(seed: int, n_src: int, n_tgt: int, step: float = 0.075):
+    """Two scans of a corridor (walls at x = ±2.5 m, the floor at y = -2 m,
+    a wall across it at z = 11 m that fixes the motion along it, 30% of the
+    world in 12 blobs), each in its sensor's frame: the source
+    `step` metres on and 0.02 rad of yaw from the target's pose, as the
+    stream's frames are. Returns (source [n_src,3], target [n_tgt,3])."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = 65536
+    wall = rng.integers(0, 4, n)
+    t = rng.uniform(0, 20, n)
+    h = rng.uniform(-2, 2, n)
+    u = rng.uniform(-2.5, 2.5, n)
+    world = np.stack([np.where(wall == 0, -2.5, np.where(wall == 1, 2.5, np.where(wall == 2, h, u))),
+                      np.where(wall == 2, -2.0, h * 0.8), np.where(wall == 3, 11.0, t)], -1)
+    world += rng.normal(0, 0.03, world.shape)
+    n_cl = int(0.3 * n)
+    centers = rng.uniform([-2.0, -1.6, 0.5], [2.0, 1.6, 19.5], (12, 3))
+    world[:n_cl] = centers[rng.integers(0, 12, n_cl)] + rng.normal(0, 0.15, (n_cl, 3))
+
+    def scan(z, yaw, k):
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0], [-np.sin(yaw), 0, np.cos(yaw)]])
+        rel = (world - np.array([0.0, 0.0, z])) @ R
+        vis = np.nonzero((rel[:, 2] > 0.5) & (np.linalg.norm(rel, axis=-1) < 8.0))[0]
+        return rel[rng.choice(vis, k, replace=False)].astype(np.float32)
+
+    return scan(5.0 + step, 0.02, n_src), scan(5.0, 0.0, n_tgt)
+
+
+def grid_sync_ms(device, n_src: int, syncs: int = 2000) -> float:
+    """Device ms of one grid-wide barrier on the align's grid for `n_src`
+    points: a cooperative kernel of `syncs` barriers and nothing else, less
+    one of none, over `syncs`."""
+    import ctypes
+
+    from sags_tpu_torch.ops import gicp
+    from sags_tpu_torch.ops._build import stream_ptr
+
+    fn = gicp.ALIGN.function("sags_gicp_grid_sync_probe",
+                             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+
+    def probe(k):
+        code = fn(n_src, k, stream_ptr(device))
+        if code != 0:
+            raise RuntimeError(f"sags_gicp_grid_sync_probe failed ({code})")
+
+    return (cuda_ms(lambda: probe(syncs), 5) - cuda_ms(lambda: probe(0), 5)) / syncs
+
+
+def gicp_align_phase(device, shape=GICP_SHAPE, seed=0) -> dict:
+    """`gicp_align`'s kernel (`gicp_align_kernel`) against its plain version
+    (`gicp_align_plain`: `lsq_align` on the card) on `corridor_scans` at
+    `shape` from the identity, with the stream's GICP settings: the same
+    (outer, inner) iterations and convergence, and the pose within 2e-4 m at
+    the farthest source point (`max_abs_err`, m); its time from a CUDA graph
+    (None where the graph cannot capture the cooperative launch) and from
+    back-to-back launches, the plain version's; the bound: the grid
+    barriers' latency (`grid_sync_ms`) times the barriers (one a
+    linearization and one a trial), beside the nearest-neighbour pass's
+    operations and bytes (each input read once a linearization)."""
+    import torch
+
+    from sags_tpu_torch.core.config import GICPConfig
+    from sags_tpu_torch.ops import gicp
+
+    n_src, n_tgt = shape
+    src, tgt = (torch.as_tensor(a, device=device) for a in corridor_scans(seed, n_src, n_tgt))
+    cfg = GICPConfig()
+    smask = torch.ones(n_src, dtype=torch.bool, device=device)
+    tmask = torch.ones(n_tgt, dtype=torch.bool, device=device)
+    cov = lambda p, m: gicp.estimate_covariances(p, m, cfg.k_correspondences,
+                                                 cfg.knn_max_distance, cfg.regularization).covs
+    data = gicp.GICPData(src, smask, cov(src, smask), tgt, tmask, cov(tgt, tmask))
+    T0 = torch.eye(4, device=device)
+    got = gicp.gicp_align_kernel(data, T0, cfg)
+    want = gicp.gicp_align_plain(data, T0, cfg)
+    counts = (int(got.iterations), int(got.lm_iterations), bool(got.converged))
+    assert counts == (want.iterations, want.lm_iterations, want.converged), \
+        f"the align kernel's (outer, inner, converged) {counts} differ from its plain " \
+        f"version's {(want.iterations, want.lm_iterations, want.converged)}"
+    gap = float(torch.linalg.vector_norm((src @ got.T[:3, :3].T + got.T[:3, 3])
+                                         - (src @ want.T[:3, :3].T + want.T[:3, 3]),
+                                         dim=-1).max())
+    assert gap <= 2e-4, f"the align kernel's pose is {gap} m from its plain version's"
+    align = lambda: gicp.gicp_align_kernel(data, T0, cfg)
+    try:
+        ms = graph_ms(align, reps=20, replays=3)
+    except RuntimeError as exc:
+        ms, graph_error = None, str(exc).splitlines()[0]
+    else:
+        graph_error = None
+    r = {"stream_ms": cuda_ms(align, 50),
+         "plain_ms": cuda_ms(lambda: gicp.gicp_align_plain(data, T0, cfg), 3)}
+    sync_ms = grid_sync_ms(device, n_src)
+    ops = NN_OPS * n_src * n_tgt * counts[0]
+    n_bytes = GICP_POINT_BYTES * (n_src + n_tgt) * counts[0]
+    parts = {"grid barriers": sync_ms * (counts[0] + counts[1]),
+             "operations": ops / PEAK_FP32_S * 1e3, "bytes": n_bytes / PEAK_BYTES_S * 1e3}
+    by = max(parts, key=parts.get)
+    r.update(ms=ms, graph_error=graph_error, ops=ops, bytes=n_bytes, bound_ms=parts[by],
+             bound_by=by, bound_parts=parts, grid_sync_ms=sync_ms,
+             grid=gicp._align_grid(n_src), max_abs_err=gap, iterations=counts[0],
+             lm_iterations=counts[1], shape=list(shape))
+    emit({"phase": "gicp_align", **r})
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -967,7 +1093,7 @@ def main() -> int:
         return 2
     from sags_tpu_torch import resolve_device
     from sags_tpu_torch.ops import _build
-    from sags_tpu_torch.ops import binning, composite, sort, windowed  # noqa: F401  (register kernels)
+    from sags_tpu_torch.ops import binning, composite, gicp, sort, windowed  # noqa: F401  (register kernels)
 
     device = resolve_device("cuda")
     t0 = time.perf_counter()
@@ -989,6 +1115,7 @@ def main() -> int:
     thin = thin_scene_phase(device)
     thin_w = thin_windowed_phase(device)
     wres = windowed_kernel_phase(device, stops=stops)
+    gres = gicp_align_phase(device)
 
     # (source, TPU kernel) of each row, in the table's order
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -1006,8 +1133,11 @@ def main() -> int:
            "sort_blocks": ("sags_tpu_torch/csrc/sort_blocks.cu",
                            "sags_tpu/ops/pallas_sort.py:89"),
            # replaces no TPU kernel: the JAX package leaves it to XLA
-           "expand_pairs": ("sags_tpu_torch/csrc/expand_pairs.cu", None)}
-    rows = dict(kres[TABLE_CAPACITY], **wres, expand_pairs=xres[EXPAND_CASES[0]])
+           "expand_pairs": ("sags_tpu_torch/csrc/expand_pairs.cu", None),
+           # replaces no TPU kernel: the JAX package leaves the LM loop to XLA
+           "gicp_align": ("sags_tpu_torch/csrc/gicp_align.cu", None)}
+    rows = dict(kres[TABLE_CAPACITY], **wres, expand_pairs=xres[EXPAND_CASES[0]],
+                gicp_align=gres)
     kernels = []
     for name, (path, replaces) in src.items():
         r = rows[name]
@@ -1017,8 +1147,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": path, "replaces": replaces,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "stream_ms": r["stream_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            # the align's bound is its grid barriers' latency (`gicp_align_phase`)
+            "bound_ms": r["bound_ms"] if "bound_by" in r else max(t_bytes, t_ops),
+            "bound_by": r.get("bound_by", "bytes" if t_bytes >= t_ops else "operations"),
             "library_ms": r.get("library_ms"),
             **({"empty_kernel_ms": r["empty_ms"], "torch_full_ms": r["full_ms"]}
                if name == "fill_table" else {}),

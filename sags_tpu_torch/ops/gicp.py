@@ -8,17 +8,23 @@ DIRECT1/7/27/RADIUS neighbour search of VGICP, and the LsqRegistration loop:
 Gauss-Newton, or Levenberg-Marquardt with the reference's accept/λ rules
 (`lsq_registration_impl.hpp:53-173`).
 
-The JAX `lax.while_loop`s become Python loops: each Gauss-Newton iteration
-and each LM trial reads its convergence (and accept) flags on the host (one
-sync each), and so does each outer LM iteration's convergence test and each
-`robust_inv3` (whether a determinant vanished); the LM loop's two starting
-scalars are copied to the device: an LM align of `i` outer iterations and
-`n` trials syncs 2·i + n + 2 times (`utils/profiling.host_read` counts them
-while tracing is on).
+`gicp_align` on CUDA tensors is one launch of one cooperative CUDA kernel
+(`csrc/gicp_align.cu`, `ALIGN`): every linearization and every LM trial on
+the card, and no host sync; its scalars come back as 0-dim device tensors.
+On the CPU, and for `vgicp_align`, `gicp_align_st` and NDT on any device, the
+JAX `lax.while_loop`s are Python loops (`lsq_align`, the kernel's plain
+version): each Gauss-Newton iteration and each LM trial reads its
+convergence (and accept) flags on the host (one sync each on a card), and so
+does each outer LM iteration's convergence test and each `robust_inv3`
+(whether a determinant vanished); the LM loop's two starting scalars are
+copied to the device: an LM align of `i` outer iterations and `n` trials
+syncs 2·i + n + 2 times (`utils/profiling.host_read` counts them while
+tracing is on).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -26,6 +32,7 @@ import torch
 
 from sags_tpu_torch.core.config import GICPConfig
 from sags_tpu_torch.core.transforms import rotmat_to_quat, se3_matrix, skew, so3_exp
+from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
 from sags_tpu_torch.ops.knn import knn
 from sags_tpu_torch.utils.profiling import host_read, span
 
@@ -490,6 +497,10 @@ def make_vgicp_linearizer(data: VGICPData, cfg: GICPConfig):
 
 
 class AlignResult(NamedTuple):
+    """`converged`, `iterations` and `lm_iterations` are Python scalars from
+    `lsq_align` and 0-dim device tensors from the kernel (`ALIGN`), which
+    the host reads only when a caller converts them."""
+
     T: torch.Tensor  # [4,4]
     H: torch.Tensor  # [6,6] last Hessian
     converged: bool
@@ -586,15 +597,74 @@ def lsq_align(linearize, error_fn, init_T: torch.Tensor, cfg: GICPConfig,
     return AlignResult(T, H, converged, i, e, n_lm)
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ALIGN = CudaKernel("gicp_align.cu", "sags_gicp_align",
+                   [_P] * 7 + [_I, _I, _F, _I, _I, _I, _F, _F, _F] + [_P] * 6)
+_CORR_COLS = 13  # the kernel's scratch row a source point: w, mean_B, M
+_SUMS = 28  # a block's partial sums: H's upper triangle, b, e
+
+
+def _align_grid(n_src: int) -> int:
+    """Blocks `ALIGN` launches for `n_src` source points."""
+    return ALIGN.function("sags_gicp_align_grid", [_I], ctypes.c_int)(n_src)
+
+
+def gicp_align_plain(data: GICPData, init_T: torch.Tensor, cfg: GICPConfig) -> AlignResult:
+    """The kernel's plain version, on any device: `lsq_align` over
+    `make_gicp_linearizer`."""
+    lin, err = make_gicp_linearizer(data, cfg)
+    return lsq_align(lin, err, init_T, cfg)
+
+
+def gicp_align_kernel(data: GICPData, init_T: torch.Tensor, cfg: GICPConfig) -> AlignResult:
+    """The whole align in one launch of `ALIGN` on the card, with no host
+    read: `lsq_align`'s semantics (`csrc/gicp_align.cu`); `converged`,
+    `iterations` and `lm_iterations` are 0-dim device tensors."""
+    if cfg.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r} (one of {OPTIMIZERS})")
+    N, M = data.source.shape[0], data.target.shape[0]
+    shapes = ((N, 3), (N,), (N, 3, 3), (M, 3), (M,), (M, 3, 3))
+    if [tuple(t.shape) for t in data] != list(shapes) or init_T.shape != (4, 4):
+        raise ValueError("gicp_align: expected source [N,3], source_mask [N], source_covs "
+                         "[N,3,3], target [M,3], target_mask [M], target_covs [M,3,3], "
+                         "init_T [4,4]")
+    want = [torch.float32, torch.bool, torch.float32] * 2
+    if [t.dtype for t in data] != want or init_T.dtype != torch.float32:
+        raise TypeError("gicp_align: expected float32 points, covariances and init_T, "
+                        "bool masks")
+    dev = data.source.device
+    if dev.type != "cuda" or any(t.device != dev for t in (*data, init_T)):
+        raise ValueError("gicp_align: the kernel takes every input on one CUDA device")
+    cols = [t.detach().contiguous() for t in (*data, init_T)]
+    corr = torch.empty((N, _CORR_COLS), dtype=torch.float32, device=dev)
+    partials = torch.empty((2, _align_grid(N), _SUMS), dtype=torch.float64, device=dev)
+    out = torch.empty(53, dtype=torch.float32, device=dev)  # T, H, e
+    out_i = torch.empty(2, dtype=torch.int32, device=dev)  # iterations, trials
+    converged = torch.empty((), dtype=torch.bool, device=dev)
+    ALIGN.launch(*(t.data_ptr() for t in cols), N, M, float(cfg.corr_dist_threshold) ** 2,
+                 cfg.max_iterations, cfg.lm_max_iterations, int(cfg.optimizer == "gn"),
+                 cfg.lm_init_lambda_factor, cfg.rotation_epsilon, cfg.transformation_epsilon,
+                 corr.data_ptr(), partials.data_ptr(), out.data_ptr(), out_i.data_ptr(),
+                 converged.data_ptr(), stream_ptr(dev))
+    return AlignResult(T=out[:16].view(4, 4), H=out[16:52].view(6, 6), converged=converged,
+                       iterations=out_i[0], error=out[52], lm_iterations=out_i[1])
+
+
 def gicp_align(source, target, source_mask, target_mask, init_T,
                cfg: GICPConfig = GICPConfig(), source_covs=None,
                target_covs=None) -> AlignResult:
+    """GICP (`fast_gicp_impl.hpp`): covariances estimated where not given,
+    then the align from `init_T`: on the CPU `gicp_align_plain`, on CUDA
+    `gicp_align_kernel` (one launch, no host sync; no fallback)."""
     with span("gicp.align"):
         data = GICPData(
             source, source_mask, _covs_or_estimate(source, source_mask, source_covs, cfg),
             target, target_mask, _covs_or_estimate(target, target_mask, target_covs, cfg))
-        lin, err = make_gicp_linearizer(data, cfg)
-        return lsq_align(lin, err, init_T, cfg)
+        if source.device.type == "cpu":
+            return gicp_align_plain(data, init_T, cfg)
+        if source.device.type != "cuda":
+            raise ValueError(f"gicp_align: no path for device {source.device}")
+        return gicp_align_kernel(data, init_T, cfg)
 
 
 def _covs_or_estimate(points, mask, covs, cfg: GICPConfig):

@@ -1027,7 +1027,8 @@ def test_slam_loop_on_the_card_launches_each_kernel_once_a_step(device, frontend
     frame, read from the fused front-end's metrics ring or the per-module
     front-end's host row, and each kernel of the render path launched once
     a training step; the windowed path never launches the classic
-    compositors."""
+    compositors. The "gicp" tracker's align kernel launches once a tracked
+    frame (every frame but the first), in either front-end."""
     from sags_tpu_torch.slam.pipeline import SLAMPipeline
     from torch_support import launch_counts
 
@@ -1045,6 +1046,7 @@ def test_slam_loop_on_the_card_launches_each_kernel_once_a_step(device, frontend
         assert counts[sym] == res.train_iters, (sym, counts)
     if path == "windowed":
         assert counts["sags_composite_fused"] == counts["sags_composite_fused_bwd"] == 0
+    assert counts["sags_gicp_align"] == len(frames) - 1 == len(pipe.lm_log), counts
 
 
 # the functions a sync is charged to: the innermost of these on its stack
@@ -1057,9 +1059,10 @@ def test_per_module_frame_on_the_card_syncs_once_a_step(device, backend, monkeyp
     """The per-module front-end on the card under
     `torch.cuda.set_sync_debug_mode("warn")`, every sync charged to the
     innermost of `SYNC_STAGES` on its stack: each frame's training step
-    reads its scalars in one fetch (`_train_once`, one host row), and the
+    reads its scalars in one fetch (`_train_once`, one host row), the
     ESIKF tracker reads nothing once its surfel map is live and its
-    bootstrap done (frame 2 on)."""
+    bootstrap done (frame 2 on), and the "gicp" tracker nothing from its
+    first align on (frame 1: one launch of the align kernel a frame)."""
     import traceback
     import warnings
 
@@ -1095,6 +1098,8 @@ def test_per_module_frame_on_the_card_syncs_once_a_step(device, backend, monkeyp
     assert [c.get("_train_once", 0) for c in per_frame] == [1] * len(frames), per_frame
     if backend == "esikf":
         assert all(c.get("_track_esikf", 0) == 0 for c in per_frame[2:]), per_frame
+    else:
+        assert all(c.get("_track", 0) == 0 for c in per_frame[1:]), per_frame
 
 
 def test_offline_trainer_on_the_card_launches_each_kernel_once_an_iteration(device):
