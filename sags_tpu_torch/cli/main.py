@@ -71,10 +71,11 @@ def _load_dataset(args, device):
 
 def mask_generator(args, cfg, device):
     """run-slam's mask generator from `--mask-backend`: geometric clusters,
-    SAM with the shipped synthetic-trained weights, or MobileSAM at its
-    published widths with weights drawn from the config's seed (no
-    checkpoint is in the repository; `models.mobile_sam.load_checkpoint`
-    loads one)."""
+    SAM with the shipped synthetic-trained weights, or, at their published
+    widths with weights drawn from the config's seed, MobileSAM (its
+    TinyViT encoder) or MobileSAMv2's EfficientViT-SAM-L2 encoder behind
+    the same decoder (no checkpoint is in the repository;
+    `models.mobile_sam.load_checkpoint` loads one)."""
     if args.mask_backend == "geometric":
         from sags_tpu_torch.semantics.geometric import GeometricMaskGenerator
 
@@ -82,10 +83,11 @@ def mask_generator(args, cfg, device):
     from sags_tpu_torch.semantics.masks import MaskGenerator
 
     sam = None
-    if args.mask_backend == "mobile_sam":
-        from sags_tpu_torch.models.mobile_sam import MobileSAM
+    if args.mask_backend in ("mobile_sam", "efficientvit_l2"):
+        from sags_tpu_torch.models.mobile_sam import MobileSAM, MobileSAMConfig
 
-        sam = MobileSAM(seed=cfg.seed, device=device)
+        encoder = "tiny_vit" if args.mask_backend == "mobile_sam" else args.mask_backend
+        sam = MobileSAM(MobileSAMConfig(encoder=encoder), seed=cfg.seed, device=device)
     return MaskGenerator(sam=sam, num_classes=cfg.semantics.num_classes, device=device)
 
 
@@ -531,7 +533,7 @@ def main(argv=None):
                     choices=["none", "gicp", "vgicp", "gicp_map", "esikf"])
     sp.add_argument("--semantics", action="store_true")
     sp.add_argument("--mask-backend", default="geometric",
-                    choices=["geometric", "sam", "mobile_sam"])
+                    choices=["geometric", "sam", "mobile_sam", "efficientvit_l2"])
     sp.add_argument("--port", type=int, default=7011,
                     help="TCP port for --dataset socket (io/stream.py)")
     sp.add_argument("--post-train", type=int, default=None)

@@ -20,6 +20,11 @@ TF32 off on the card (`resolve_device`).
     transposed convolutions to [B,32,4G,4G], four hypernetwork MLPs and the
     IoU head; `multimask_output=False` keeps mask 0 and IoU 0.
 
+`MobileSAMConfig.encoder` selects the image encoder: TinyViT (the
+default, above) or EfficientViT-SAM-L2 (`"efficientvit_l2"`,
+`models/efficientvit_sam.py`), MobileSAMv2's default encoder, in front of
+the same prompt encoder, decoder and predictor.
+
 Parameter names follow MobileSAM's `state_dict`, so a published checkpoint
 loads with `load_checkpoint` (it drops the classification head and the mask
 prompt's convolutions, which box prompts never use). None is in the
@@ -62,8 +67,11 @@ UNUSED_PREFIXES = ("image_encoder.norm_head.", "image_encoder.head.",
 
 @dataclasses.dataclass(frozen=True)
 class MobileSAMConfig:
-    """`build_sam_vit_t`'s numbers (the defaults) or a reduced copy for tests."""
+    """`build_sam_vit_t`'s numbers (the defaults) or a reduced copy for tests;
+    with `encoder="efficientvit_l2"`, `efficientvit_sam_l2`'s encoder (its
+    numbers the defaults of the second group) in TinyViT's place."""
 
+    encoder: str = "tiny_vit"  # or "efficientvit_l2"
     img_size: int = 1024
     embed_dims: Tuple[int, ...] = (64, 128, 160, 320)
     depths: Tuple[int, ...] = (2, 2, 6, 2)
@@ -72,6 +80,16 @@ class MobileSAMConfig:
     mlp_ratio: float = 4.0
     mbconv_expand_ratio: float = 4.0
     local_conv_size: int = 3
+    # EfficientViT-L2 (`efficientvit_backbone_l2`, `SamNeck` of `efficientvit_sam_l2`)
+    width_list: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    depth_list: Tuple[int, ...] = (1, 2, 2, 8, 8)
+    expand_list: Tuple[float, ...] = (1, 4, 4, 4, 6)
+    qkv_dim: int = 32
+    scales: Tuple[int, ...] = (5,)
+    neck_width: int = 256
+    neck_depth: int = 12
+    neck_expand_ratio: float = 1.0
+    # SAM's prompt encoder and mask decoder
     prompt_embed_dim: int = 256
     decoder_depth: int = 2
     decoder_heads: int = 8
@@ -270,6 +288,18 @@ class TinyViT(nn.Module):
             if layer.downsample is not None:
                 x = layer.downsample(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return self.neck(x.permute(0, 3, 1, 2))
+
+
+def image_encoder(c: MobileSAMConfig) -> nn.Module:
+    """The encoder `c.encoder` names."""
+    if c.encoder == "tiny_vit":
+        return TinyViT(c)
+    if c.encoder == "efficientvit_l2":
+        # imported here: `efficientvit_sam` imports this module's config and norm
+        from sags_tpu_torch.models.efficientvit_sam import EfficientViTSamImageEncoder
+
+        return EfficientViTSamImageEncoder(c)
+    raise ValueError(f"no image encoder {c.encoder!r}")
 
 
 # -- SAM's prompt encoder and mask decoder --------------------------------------
@@ -488,7 +518,7 @@ class MobileSAM(nn.Module):
         super().__init__()
         self.config = config
         self.img_size = config.img_size
-        self.image_encoder = TinyViT(config)
+        self.image_encoder = image_encoder(config)
         self.prompt_encoder = PromptEncoder(config)
         self.mask_decoder = MaskDecoder(config)
         self.register_buffer("pixel_mean", torch.tensor(PIXEL_MEAN).view(3, 1, 1),
