@@ -55,7 +55,13 @@ Phases, each failing the run (non-zero exit, no result line):
        card) and the pose within 2e-4 m at the farthest source point; its
        time beside the plain version's and its bound, the latency of its
        grid barriers (one a linearization and one a trial), with the
-       nearest-neighbour pass's operations and bytes.
+       nearest-neighbour pass's operations and bytes;
+     - the preprocess kernel pair (a pair that replaces no TPU kernel) at the
+       offline cell's 2^22 slots and at 2^20, on a seeded random scene at SH
+       degree 0 with the densification probe: every output bit for bit the
+       plain `preprocess`'s, every gradient within 1e-6 of its leaf's norm of
+       autograd's through it; the forward's time and the pair's beside their
+       byte bound and the plain version with its autograd backward.
 The line before the last, `{"kernels": [...]}`, holds one row a kernel:
 its `ms` and `library_ms`, device time from a CUDA graph of its launches
 (`graph_ms`); its `stream_ms` and `plain_ms`, back-to-back launches from
@@ -977,6 +983,92 @@ NN_OPS = 9
 GICP_POINT_BYTES = 12 + 1 + 36
 
 
+# slots of the preprocess kernel pair's cases: the offline cell's and a
+# stream map's after two doublings
+PREPROCESS_SIZES = (2 ** 22, 2 ** 20)
+# bytes a slot the pair must move at SH degree 0 with the probe: the forward
+# reads the centre, scales, quaternion, opacity, SH-0 (12 + 12 + 16 + 4 + 12),
+# the active flag and the offset (1 + 8) and writes its 18 rows (72); the
+# backward reads centre, scales, quaternion and SH-0 again (52) and 11 upstream
+# gradients (44) and writes the centre's, scales', quaternion's, SH-0's and the
+# offset's (60)
+PREPROCESS_BYTES = 65 + 72 + 52 + 44 + 60
+# float32 operations a slot of the pair, about, counted from the source (a
+# division, square root or logarithm one each): the forward's ~335, of which
+# the differentiable terms ~295 that the backward recomputes before its ~310
+PREPROCESS_OPS = 940
+
+
+def preprocess_phase(device, sizes=PREPROCESS_SIZES, width=SLICE_W, height=SLICE_H):
+    """The preprocess kernel pair (`rasterize.preprocess_kernel`: a pair that
+    replaces no TPU kernel) on a seeded random scene at SH degree 0 with 5%
+    of the slots inactive and the densification probe, at each of `sizes`
+    slots: every output bit for bit the plain `preprocess`'s on the card, and
+    every input gradient within 1e-6 of the leaf's norm of autograd's through
+    it (`max_abs_err`: the largest gap over its leaf's norm). Times: the
+    forward alone (`fwd_ms`, a CUDA graph) and the pair, the forward and
+    autograd's backward from given upstream gradients (`ms` from a CUDA graph,
+    `stream_ms` from back-to-back launches), beside the byte bound and the
+    plain version with its autograd backward (`plain_ms`). Returns each
+    size's row."""
+    import torch
+
+    from sags_tpu_torch.core import sh as shlib
+    from sags_tpu_torch.core.camera import make_camera
+    from sags_tpu_torch.core.config import RasterizeConfig
+    from sags_tpu_torch.ops import rasterize as rz
+
+    cam = make_camera(torch.eye(3, device=device), torch.zeros(3, device=device),
+                      width, height, 2 * math.atan(width / (2 * 431.8)),
+                      2 * math.atan(height / (2 * 431.8)))
+    cfg = RasterizeConfig(max_tiles_per_gaussian=36, tile_capacity=1024)
+    diff = ("mx", "my", "depth", "ca", "cb", "cc", "czx", "cyz", "color")
+    results = {}
+    for P in sizes:
+        xyz, opac, scales, quats, colors, _ = random_scene(P, device, seed=P + 25)
+        g = torch.Generator(device="cpu").manual_seed(P)
+        active = (torch.rand(P, generator=g) > 0.05).to(device)
+        shs = ((colors - 0.5) / shlib.C0)[:, :, None].contiguous()
+        probe = torch.zeros((P, 2), device=device)
+        leaves = [t.requires_grad_(True) for t in (xyz, scales, quats, shs, probe)]
+
+        def run(fn):
+            return fn(xyz, opac, scales, quats, cam, cfg, shs=shs, sh_degree=0,
+                      active_mask=active, mean2d_offset=probe)
+
+        got, want = run(rz.project), run(rz.preprocess)
+        for name in rz.Preprocessed._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), \
+                f"the preprocess kernel's {name} differs from the plain version's at P = {P}"
+        up = [torch.randn(getattr(want, k).shape, generator=g).to(device) for k in diff]
+
+        def grads(o):
+            return torch.autograd.grad([getattr(o, k) for k in diff], leaves, up)
+
+        gap = max(float((a - b).abs().max()) / float(b.norm())
+                  for a, b in zip(grads(got), grads(want)))
+        assert gap <= 1e-6, f"the preprocess backward is {gap} of a leaf's norm off at P = {P}"
+        del got, want
+
+        def pair():
+            return grads(run(rz.project))
+
+        try:
+            ms, graph_error = graph_ms(pair, reps=10, replays=3), None
+        except RuntimeError as exc:
+            ms, graph_error = None, str(exc).splitlines()[0]
+        with torch.no_grad():
+            fwd_ms = graph_ms(lambda: run(rz.project), reps=20, replays=3)
+        n_bytes = PREPROCESS_BYTES * P
+        r = {"ms": ms, "graph_error": graph_error, "stream_ms": cuda_ms(pair, 10),
+             "fwd_ms": fwd_ms, "plain_ms": cuda_ms(lambda: grads(run(rz.preprocess)), 3),
+             "bytes": n_bytes, "ops": PREPROCESS_OPS * P, "max_abs_err": gap,
+             "bound_ms": n_bytes / PEAK_BYTES_S * 1e3}
+        results[P] = r
+        emit({"phase": "preprocess", "slots": P, "bitwise": True, **r})
+    return results
+
+
 def corridor_scans(seed: int, n_src: int, n_tgt: int, step: float = 0.075):
     """Two scans of a corridor (walls at x = ±2.5 m, the floor at y = -2 m,
     a wall across it at z = 11 m that fixes the motion along it, 30% of the
@@ -1093,7 +1185,7 @@ def main() -> int:
         return 2
     from sags_tpu_torch import resolve_device
     from sags_tpu_torch.ops import _build
-    from sags_tpu_torch.ops import binning, composite, gicp, sort, windowed  # noqa: F401  (register kernels)
+    from sags_tpu_torch.ops import binning, composite, gicp, rasterize, sort, windowed  # noqa: F401  (register kernels)
 
     device = resolve_device("cuda")
     t0 = time.perf_counter()
@@ -1116,6 +1208,7 @@ def main() -> int:
     thin_w = thin_windowed_phase(device)
     wres = windowed_kernel_phase(device, stops=stops)
     gres = gicp_align_phase(device)
+    pres = preprocess_phase(device)
 
     # (source, TPU kernel) of each row, in the table's order
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -1135,9 +1228,11 @@ def main() -> int:
            # replaces no TPU kernel: the JAX package leaves it to XLA
            "expand_pairs": ("sags_tpu_torch/csrc/expand_pairs.cu", None),
            # replaces no TPU kernel: the JAX package leaves the LM loop to XLA
-           "gicp_align": ("sags_tpu_torch/csrc/gicp_align.cu", None)}
+           "gicp_align": ("sags_tpu_torch/csrc/gicp_align.cu", None),
+           # replaces no TPU kernel: the JAX package leaves preprocess to XLA
+           "preprocess": ("sags_tpu_torch/csrc/preprocess.cu", None)}
     rows = dict(kres[TABLE_CAPACITY], **wres, expand_pairs=xres[EXPAND_CASES[0]],
-                gicp_align=gres)
+                gicp_align=gres, preprocess=pres[PREPROCESS_SIZES[0]])
     kernels = []
     for name, (path, replaces) in src.items():
         r = rows[name]
@@ -1163,7 +1258,8 @@ def main() -> int:
           "live_pixel_pairs": {K: kres[K]["live_pixel_pairs"] for K in kres},
           "strip_cull": dict({K: kres[K]["strip_cull"] for K in kres}, **thin),
           "windowed": {k: v for k, v in wres.items() if not isinstance(v, dict)},
-          "expand_pairs": {f"{P}x{mt}": r for (P, mt), r in xres.items()}})
+          "expand_pairs": {f"{P}x{mt}": r for (P, mt), r in xres.items()},
+          "preprocess": pres})
     emit({"composite_windowed_sorted_phases": wres["composite_windowed_sorted"]["phases"],
           "strip_cull_dropped_share": {
               "kernel_cell": {k: wres[k]["strip_cull"]["dropped_share"]

@@ -5,7 +5,10 @@ Stages, as in the JAX package:
   1. `preprocess`: frustum cull, Σ3D from (scale, quat), EWA projection with
      the +0.3 px low-pass, conic, 3σ radius, the tight alpha-cull tile rect,
      SH degree-0 colour — longhand over [P] columns so the arithmetic order
-     (and the 16-bit depth keys) match the JAX package.
+     (and the 16-bit depth keys) match the JAX package. The renders call it
+     through `project`, which on the card takes the CUDA kernel pair
+     `preprocess_kernel` instead (`csrc/preprocess.cu`: the same outputs bit
+     for bit, one forward and one backward launch).
   2. Binning and compositing, by one of two paths:
      * classic (training): `bin_gaussians` expands pairs over the R×R offset
        window and fills the table with the CUDA kernels `expand_pairs` and
@@ -40,6 +43,7 @@ sharded over the ranks' tiles; see `rasterize`.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -50,6 +54,7 @@ from sags_tpu_torch.core.camera import Camera, ndc2pix
 from sags_tpu_torch.core.config import RasterizeConfig
 from sags_tpu_torch.core.transforms import quat_normalize
 from sags_tpu_torch.ops import composite as comp
+from sags_tpu_torch.ops._build import CudaKernel, stream_ptr
 from sags_tpu_torch.ops import windowed as win
 from sags_tpu_torch.ops.binning import cull_c2, expand_pairs, fill_table, tile_qmin
 from sags_tpu_torch.utils.profiling import count, host_read, span
@@ -263,6 +268,164 @@ def preprocess(means3d, opacities, scales, quats, camera: Camera,
         rmin_x=rmin_x, rmin_y=rmin_y, rmax_x=rmax_x, rmax_y=rmax_y,
         valid=valid, clamped=clamped, rcull2=rcull2,
     )
+
+
+# The kernel pair (`csrc/preprocess.cu`), built without fused multiply-adds so
+# the forward rounds each operation where PyTorch does
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+PREPROCESS = CudaKernel("preprocess.cu", "sags_preprocess", [_VP] * 10 + [_I] * 5 + [_VP] * 2,
+                        flags=("-fmad=false",))
+PREPROCESS_BWD = CudaKernel("preprocess.cu", "sags_preprocess_bwd",
+                            [_VP] * 9 + [_I] * 2 + [_VP] * 6, flags=("-fmad=false",))
+_PRE_ROWS = 18  # [18, P] float32: 9 float rows, the colour [P,3], 5 int32 rows, the flags
+
+
+def _preprocess_consts(camera: Camera, cfg: RasterizeConfig):
+    """The kernel pair's scalars in `Consts`' order, each Python number
+    rounded to float32 as PyTorch rounds it; a divisor as its reciprocal,
+    taken in double and then rounded, which PyTorch's CUDA division by a
+    Python scalar multiplies by."""
+    return (ctypes.c_float * 13)(
+        camera.width, camera.height, camera.focal_x, camera.focal_y,
+        1.3 * camera.tan_fovx, 1.3 * camera.tan_fovy, cfg.near, cfg.low_pass,
+        cfg.scale_modifier, 1.0 / cfg.alpha_min, float(cfg.tile), 1.0 / cfg.tile, shlib.C0)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+class _PreprocessFn(torch.autograd.Function):
+    """`preprocess` as one forward and one backward kernel. The outputs are
+    rows of one [18, P] buffer; the colour is an output only when `shs` is
+    given. The backward saves only the inputs and recomputes the rest a slot
+    at a time."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, quats, shs, mean2d_offset, opacities, active_mask,
+                V, M, meta):
+        P, sh_stride, tiles_x, tiles_y, tight, consts = meta
+        dev = means3d.device
+        buf = torch.empty((_PRE_ROWS, P), dtype=torch.float32, device=dev)
+        PREPROCESS.launch(*(_ptr(t) for t in (means3d, scales, quats, opacities, shs,
+                                              active_mask, mean2d_offset, V, M)),
+                          consts, P, sh_stride, tiles_x, tiles_y, int(tight), buf.data_ptr(),
+                          stream_ptr(dev))
+        ints = buf[12:17].view(torch.int32)
+        flags = buf[17].view(torch.uint8).view(torch.bool)
+        valid, clamped = flags[:P], flags[P:].view(P, 3)
+        nondiff = (buf[8], *ints, valid, clamped)
+        ctx.mark_non_differentiable(*nondiff)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(means3d, scales, quats, shs, V, M)
+        ctx.meta = meta
+        color = None if shs is None else buf[9:12].view(P, 3)
+        return (*buf[:8], color, *nondiff)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        means3d, scales, quats, shs, V, M = ctx.saved_tensors
+        P, sh_stride, _, _, _, consts = ctx.meta
+        dev = means3d.device
+        with span("raster.preprocess_bwd", device=dev):
+            ptrs, strides = [], []
+            for g in grads[:8]:  # mx my depth ca cb cc czx cyz: [P]
+                ptrs.append(_ptr(g))
+                strides.append(0 if g is None else g.stride(0))
+            g_color = grads[8]  # [P, 3], or None without `shs`
+            for c in range(3):
+                ptrs.append(None if g_color is None
+                            else g_color.data_ptr() + 4 * c * g_color.stride(1))
+                strides.append(0 if g_color is None else g_color.stride(0))
+            need = ctx.needs_input_grad
+            d_means = torch.empty_like(means3d) if need[0] else None
+            d_scales = torch.empty_like(scales) if need[1] else None
+            d_quats = torch.empty_like(quats) if need[2] else None
+            d_shs = None
+            if need[3]:  # the kernel writes the degree-0 coefficients only
+                d_shs = torch.zeros_like(shs) if sh_stride > 1 else torch.empty_like(shs)
+            d_off = torch.empty((P, 2), dtype=torch.float32, device=dev) if need[4] else None
+            PREPROCESS_BWD.launch(*(_ptr(t) for t in (means3d, scales, quats, shs, V, M)),
+                                  consts, (_VP * 11)(*ptrs), (ctypes.c_longlong * 11)(*strides),
+                                  P, sh_stride, *(_ptr(t) for t in (d_means, d_scales, d_quats,
+                                                                    d_shs, d_off)),
+                                  stream_ptr(dev))
+        return d_means, d_scales, d_quats, d_shs, d_off, None, None, None, None, None
+
+
+def preprocess_kernel(means3d, opacities, scales, quats, camera: Camera,
+                      cfg: RasterizeConfig, colors=None, shs=None, sh_degree: int = 0,
+                      cov3d_precomp=None, active_mask=None, mean2d_offset=None) -> Preprocessed:
+    """`preprocess` on the card, with the plain version's arguments: the CUDA
+    kernel pair (`csrc/preprocess.cu`) for Σ3D from (scale, quat), the
+    projection and, from `shs` at SH degree 0, the colour. The colour of a
+    call without that is made beside it as the plain version makes it:
+    `colors` as given, `shs` above degree 0 through `sh.sh_to_color` (its
+    gradient by autograd), ones without either. The outputs are the plain
+    version's on the card bit for bit; the backward gives autograd's gradients
+    of means3d, scales, quats, shs and `mean2d_offset`. `opacity` passes
+    through as the same tensor. Raises on what the kernel does not take: a
+    precomputed Σ3D, a camera that takes gradients, and any input tensor that
+    is not CUDA float32 and contiguous."""
+    if cov3d_precomp is not None:
+        raise ValueError("preprocess_kernel: takes no cov3d_precomp; call preprocess")
+    P = means3d.shape[0]
+    sh0 = shs if colors is None and sh_degree == 0 else None
+    V, M = camera.world_view, camera.full_proj
+    cols = [("means3d", means3d, (P, 3)), ("opacities", opacities, (P,)),
+            ("scales", scales, (P, 3)), ("quats", quats, (P, 4)),
+            ("world_view", V, (4, 4)), ("full_proj", M, (4, 4))]
+    if sh0 is not None:
+        cols.append(("shs", sh0, (P, 3, sh0.shape[-1] if sh0.dim() == 3 else -1)))
+    if mean2d_offset is not None:
+        cols.append(("mean2d_offset", mean2d_offset, (P, 2)))
+    for name, t, shape in cols:
+        if t.dtype != torch.float32:
+            raise TypeError(f"preprocess_kernel: {name} must be float32, not {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"preprocess_kernel: {name} must be {list(shape)}, "
+                             f"not {list(t.shape)}")
+    if active_mask is not None:
+        if active_mask.dtype != torch.bool:
+            raise TypeError("preprocess_kernel: active_mask must be bool")
+        if tuple(active_mask.shape) != (P,):
+            raise ValueError(f"preprocess_kernel: active_mask must be [{P}]")
+        cols.append(("active_mask", active_mask, (P,)))
+    for name, t, _ in cols:
+        if not t.is_contiguous():
+            raise ValueError(f"preprocess_kernel: {name} must be contiguous")
+    if V.requires_grad or M.requires_grad:
+        raise ValueError("preprocess_kernel: gives no gradient of the camera")
+    dev = means3d.device
+    if not means3d.is_cuda or any(t.device != dev for _, t, _ in cols):
+        raise ValueError("preprocess_kernel: every input must be on one CUDA device")
+    meta = (P, 1 if sh0 is None else sh0.shape[-1], -(-camera.width // cfg.tile),
+            -(-camera.height // cfg.tile), cfg.tight_rect, _preprocess_consts(camera, cfg))
+    (mx, my, depth, ca, cb, cc, czx, cyz, color, rcull2, radius, rmin_x, rmin_y, rmax_x,
+     rmax_y, valid, clamped) = _PreprocessFn.apply(means3d, scales, quats, sh0, mean2d_offset,
+                                                   opacities, active_mask, V, M, meta)
+    if colors is not None:
+        color = colors
+    elif shs is not None and sh0 is None:
+        color, clamped = shlib.sh_to_color(sh_degree, shs, means3d, camera.cam_center)
+    elif shs is None:
+        color = torch.ones((P, 3), dtype=torch.float32, device=dev)
+    return Preprocessed(
+        mx=mx, my=my, depth=depth, ca=ca, cb=cb, cc=cc, czx=czx, cyz=cyz,
+        opacity=opacities, color=color, radius=radius, rmin_x=rmin_x, rmin_y=rmin_y,
+        rmax_x=rmax_x, rmax_y=rmax_y, valid=valid, clamped=clamped, rcull2=rcull2)
+
+
+def project(means3d, opacities, scales, quats, camera: Camera, cfg: RasterizeConfig,
+            colors=None, shs=None, sh_degree: int = 0, cov3d_precomp=None,
+            active_mask=None, mean2d_offset=None) -> Preprocessed:
+    """Stage 1 as the renders run it: `preprocess_kernel` for tensors on the
+    card, the plain `preprocess` for CPU tensors."""
+    fn = preprocess_kernel if means3d.is_cuda else preprocess
+    return fn(means3d, opacities, scales, quats, camera, cfg, colors=colors, shs=shs,
+              sh_degree=sh_degree, cov3d_precomp=cov3d_precomp, active_mask=active_mask,
+              mean2d_offset=mean2d_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -737,8 +900,8 @@ def windowed_occupancy(means3d, opacities, scales, quats, camera: Camera,
     if R * R != cfg.max_tiles_per_gaussian:
         raise ValueError("max_tiles_per_gaussian must be a perfect square")
     i32 = torch.int32
-    pre = preprocess(means3d, opacities, scales, quats, camera, cfg,
-                     active_mask=active_mask)
+    pre = project(means3d, opacities, scales, quats, camera, cfg,
+                  active_mask=active_mask)
     rw = pre.rmax_x - pre.rmin_x
     rh = pre.rmax_y - pre.rmin_y
     maxside = torch.maximum(rw, rh)
@@ -1007,10 +1170,10 @@ def rasterize(means3d, opacities, scales, quats, camera: Camera,
     O = obj_features.shape[-1]
 
     with span("raster.preprocess"):
-        pre = preprocess(means3d, opacities, scales, quats, camera, cfg,
-                         colors=colors, shs=shs, sh_degree=sh_degree,
-                         cov3d_precomp=cov3d_precomp, active_mask=active_mask,
-                         mean2d_offset=mean2d_offset)
+        pre = project(means3d, opacities, scales, quats, camera, cfg,
+                      colors=colors, shs=shs, sh_degree=sh_degree,
+                      cov3d_precomp=cov3d_precomp, active_mask=active_mask,
+                      mean2d_offset=mean2d_offset)
     n_feat = 3 + O + 4
     R = int(round(cfg.max_tiles_per_gaussian ** 0.5))
     use_windowed = bool(

@@ -176,6 +176,169 @@ def test_expand_pairs_kernel_is_repeatable(device):
         assert torch.equal(_sorted_live(keys, n), ref)
 
 
+def _leaf_grads(out, leaves, up, mask):
+    """Gradients of Σ out.k · up_k · mask over the differentiable outputs
+    (`mask` [P] picks the slots whose upstream gradients count); zeros
+    where a leaf takes none."""
+    from test_torch_preprocess import DIFF
+
+    loss = sum((getattr(out, k) * up[k] * mask.view(-1, *[1] * (up[k].dim() - 1))).sum()
+               for k in DIFF)
+    gs = torch.autograd.grad(loss, leaves, allow_unused=True, retain_graph=True)
+    return [torch.zeros_like(x) if g is None else g for g, x in zip(gs, leaves)]
+
+
+PRE_VARIANTS = {"default": RasterizeConfig(),
+                "no_low_pass": RasterizeConfig(low_pass=0.0, scale_modifier=0.7,
+                                               tight_rect=False)}
+
+
+@pytest.mark.parametrize("colour", ["sh", "sh4", "colors", "sh1", "none"])
+@pytest.mark.parametrize("variant", list(PRE_VARIANTS))
+def test_preprocess_kernel_matches_plain(device, variant, colour):
+    """`project` on the card (the kernel pair: one launch of each a forward
+    and a backward, whatever the colour input: SH degree 1 and no colour are
+    made beside it) against the plain `preprocess` on the same tensors, on
+    `test_torch_preprocess.preprocess_scene` (every branch; "no_low_pass"
+    gives its zero-scale slots det 0, at scale_modifier 0.7 with the rect by
+    radius): every output bit for bit, twice the same; every input gradient
+    within 1e-6 of the leaf's norm of autograd's through the plain version,
+    twice the same bits. The depth-0 slot's gradients (~1e16) are held on
+    their own: the bulk's upstream gradients leave it out."""
+    from test_torch_preprocess import DIFF, P, SAFE_Z_SLOT, preprocess_scene, run_project
+
+    cfg = PRE_VARIANTS[variant]
+    cam, leaves, active = preprocess_scene(5, device, colour)
+    L = list(leaves.values())
+    f0, b0 = rz.PREPROCESS.launches, rz.PREPROCESS_BWD.launches
+    got = run_project(rz.project, cam, leaves, active, cfg, colour)
+    again = run_project(rz.project, cam, leaves, active, cfg, colour)
+    assert rz.PREPROCESS.launches == f0 + 2
+    want = run_project(rz.preprocess, cam, leaves, active, cfg, colour)
+    torch.cuda.synchronize()
+    for name in rz.Preprocessed._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+        assert torch.equal(a, getattr(again, name)), name
+    v = want.valid
+    assert v.any() and not v[~active].any() and not v[30:40].any()
+    assert bool(want.clamped.any()) == (colour not in ("colors", "none"))
+    if variant == "no_low_pass":
+        assert not v[50:53].any() and not want.ca[50:53].any()
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    up = {k: torch.randn(getattr(want, k).shape, generator=gen).to(device) for k in DIFF}
+    bulk = torch.ones(P, device=device)
+    bulk[SAFE_Z_SLOT] = 0.0
+    for mask in (bulk, 1.0 - bulk):
+        gk, gk2, gp = (_leaf_grads(o, L, up, mask) for o in (got, again, want))
+        for name, a, a2, b in zip(leaves, gk, gk2, gp):
+            assert torch.equal(a, a2), name
+            gap = float((a - b).abs().max())
+            assert gap <= 1e-6 * float(b.norm()), (name, gap, float(b.norm()))
+    assert rz.PREPROCESS_BWD.launches == b0 + 4
+
+
+def test_preprocess_kernel_matches_the_jax_package(device):
+    """`project` on the card against the JAX package's `preprocess` and its
+    gradients on the CPU, stored in `tests/data/preprocess_jax.npz` (this
+    file imports no JAX; `test_torch_kernels.py` checks the file against the
+    JAX package): integers and flags exactly, floats and gradients within
+    `assert_near_reference`'s tolerances."""
+    import test_torch_preprocess as tp
+
+    ref = np.load(tp.REFERENCE)
+    cam, leaves, active = tp.preprocess_scene(tp.REF_SEED, device, "sh", n=tp.REF_N)
+    for k, v in tp.reference_inputs(cam, leaves, active).items():
+        assert np.array_equal(v, ref[k]), k  # the same scene as the reference's
+    cam = dataclasses.replace(cam, world_view=torch.as_tensor(ref["world_view"], device=device),
+                              full_proj=torch.as_tensor(ref["full_proj"], device=device))
+    f0, b0 = rz.PREPROCESS.launches, rz.PREPROCESS_BWD.launches
+    pre = tp.run_project(rz.project, cam, leaves, active, RasterizeConfig())
+    tp.assert_near_reference(pre, tp.reference_grads(pre, leaves, ref), ref)
+    assert (rz.PREPROCESS.launches, rz.PREPROCESS_BWD.launches) == (f0 + 1, b0 + 1)
+
+
+def test_windowed_occupancy_on_the_card_launches_the_preprocess_kernel(device, monkeypatch):
+    """`windowed_occupancy` (the occupancy probe that sizes the windowed
+    path's buffers; it passes no colour) on the card launches the forward
+    kernel once and no backward, and counts what it counts over the plain
+    `preprocess`'s outputs on the card, bit for bit."""
+    from test_torch_preprocess import preprocess_scene
+
+    cam, leaves, active = preprocess_scene(7, device, "none")
+    L = {k: v.detach() for k, v in leaves.items()}
+    args = (L["means3d"], L["opacities"], L["scales"], L["quats"], cam, WIN_CFG)
+    f0, b0 = rz.PREPROCESS.launches, rz.PREPROCESS_BWD.launches
+    got = rz.windowed_occupancy(*args, active_mask=active)
+    assert (rz.PREPROCESS.launches, rz.PREPROCESS_BWD.launches) == (f0 + 1, b0)
+    monkeypatch.setattr(rz, "project", rz.preprocess)
+    want = rz.windowed_occupancy(*args, active_mask=active)
+    assert rz.PREPROCESS.launches == f0 + 1 and sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert int(want["live_parents"]) > 0
+
+
+def test_preprocess_kernel_gradients_on_thin_splats(device):
+    """Needle-thin splats (scales 0.002-0.3, up to 150:1) without the
+    low-pass, where float32 gradients depend on the order of their
+    operations: the kernel's gradients are held to the float64 plain
+    version's, as close as autograd's float32 ones through the plain version
+    are (within twice their gap, plus 1e-7, of the leaf's norm)."""
+    from test_torch_preprocess import DIFF, P, SAFE_Z_SLOT, preprocess_scene, run_project
+
+    cfg = PRE_VARIANTS["no_low_pass"]
+    cam, leaves, active = preprocess_scene(6, device, "sh", scales=(0.002, 0.3))
+    L = list(leaves.values())
+    leaves64 = {k: x.detach().double().requires_grad_(True) for k, x in leaves.items()}
+    cam64 = dataclasses.replace(cam, world_view=cam.world_view.double(),
+                                full_proj=cam.full_proj.double())
+    outs = [run_project(fn, c, lv, active, cfg) for fn, c, lv in (
+        (rz.project, cam, leaves), (rz.preprocess, cam, leaves), (rz.preprocess, cam64, leaves64))]
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    up = {k: torch.randn(getattr(outs[1], k).shape, generator=gen).to(device) for k in DIFF}
+    bulk = torch.ones(P, device=device)
+    bulk[SAFE_Z_SLOT] = 0.0
+    gk, gp = (_leaf_grads(o, L, up, bulk) for o in outs[:2])
+    g64 = _leaf_grads(outs[2], list(leaves64.values()),
+                      {k: u.double() for k, u in up.items()}, bulk.double())
+    for name, a, b, t in zip(leaves, gk, gp, g64):
+        norm = float(t.norm())
+        if norm == 0.0:  # opacities: no output here takes their gradient
+            assert not a.any() and not b.any(), name
+            continue
+        ours, theirs = (float((x.double() - t).abs().max()) / norm for x in (a, b))
+        assert ours <= 2.0 * theirs + 1e-7, (name, ours, theirs)
+
+
+def test_traced_offline_step_opens_preprocess_bwd_under_step_backward(device):
+    """One offline training step on the card under the profiler: the
+    preprocess backward kernel's range `raster.preprocess_bwd` lies inside
+    `step.backward`, once, on autograd's thread, with its device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sags_tpu_torch.io.datasets import SyntheticDataset
+    from sags_tpu_torch.slam import offline
+    from sags_tpu_torch.slam.pipeline import camera_for
+    from sags_tpu_torch.utils import profiling
+    from test_torch_tracing import _cfg, _inside, _ranges
+
+    f = next(iter(SyntheticDataset(n_frames=1, width=64, height=48, n_world=4096,
+                                   pts_per_frame=512, step=0.1, clutter=0.3, device=device)))
+    cfg = _cfg()
+    st = offline.init_from_points(f.points, f.colors, cfg, device=device)
+    cam = camera_for(cfg, f, f.pose, device)
+    img = torch.as_tensor(np.asarray(f.image), device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st, _ = offline.train_step(st, cam, img, cfg)
+    ranges, rec = _ranges(prof), profiling.records()
+    assert _inside(ranges, "raster.preprocess_bwd", "step.backward")
+    spans = rec.named("raster.preprocess_bwd")
+    assert len(spans) == 1 and spans[0].thread == "autograd"
+    assert spans[0].device_ms is not None
+
+
 @pytest.mark.parametrize("chunk", [32, 64])
 def test_composite_kernels_match_plain(device, chunk):
     """Forward to 1e-5 absolute (the same float32 arithmetic summed in another
@@ -1014,10 +1177,12 @@ def _loop(device, n_frames=6, imu_substeps=0, **kw):
     return cfg, frames
 
 
-# the compositors a training step launches once on each render path
-STEP_KERNELS = {"classic": ("sags_expand_pairs", "sags_fill_table", "sags_composite_fused",
+# the kernels a training step launches once on each render path
+STEP_KERNELS = {"classic": ("sags_preprocess", "sags_preprocess_bwd", "sags_expand_pairs",
+                            "sags_fill_table", "sags_composite_fused",
                             "sags_composite_fused_bwd"),
-                "windowed": ("sags_composite_windowed", "sags_composite_windowed_bwd")}
+                "windowed": ("sags_preprocess", "sags_preprocess_bwd",
+                             "sags_composite_windowed", "sags_composite_windowed_bwd")}
 
 
 @pytest.mark.parametrize("frontend,path", [("fused", "classic"), ("modules", "classic"),

@@ -660,3 +660,67 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         composite.composite_fused_bwd(G, table, counts, torch.zeros((2, 256, 24), device=meta),
                                       torch.zeros((2, 256), device=meta),
                                       torch.zeros((2, 256), device=meta), 16, 2)
+
+
+def jax_preprocess_reference():
+    """The JAX package's `preprocess` (SH degree 0, default config) and the
+    VJP of Σ_k out.k · up_k on `test_torch_preprocess.preprocess_scene(5,
+    n=600)`, with its inputs: the arrays of `tests/data/preprocess_jax.npz`,
+    which `test_torch_cuda.py` holds the card's kernel pair to."""
+    import test_torch_preprocess as tp
+
+    cam, leaves, active = tp.preprocess_scene(tp.REF_SEED, "cpu", "sh", n=tp.REF_N)
+    out = tp.reference_inputs(cam, leaves, active)
+    jc = jax_make_camera(out["cam_R"], out["cam_t"], cam.width, cam.height, cam.fovx,
+                         cam.fovy)
+    out["world_view"], out["full_proj"] = np.asarray(jc.world_view), np.asarray(jc.full_proj)
+    names = list(leaves)
+    xs = tuple(jnp.asarray(out[k]) for k in names)
+
+    def run(m, o, s, q, sh, off):
+        return jrz.preprocess(m, o, s, q, jc, RasterizeConfig(), shs=sh, sh_degree=0,
+                              active_mask=jnp.asarray(out["active"]), mean2d_offset=off)
+
+    pre = run(*xs)
+    for k in tp.REF_OUTPUTS:
+        out[k] = np.asarray(getattr(pre, k))
+
+    def loss(*xs):
+        p = run(*xs)
+        return sum((getattr(p, k) * out["up_" + k]).sum() for k in tp.DIFF)
+
+    for k, g in zip(names, jax.grad(loss, argnums=tuple(range(len(xs))))(*xs)):
+        out["grad_" + k] = np.asarray(g)
+    return out
+
+
+def test_preprocess_reference_is_the_jax_packages():
+    """`tests/data/preprocess_jax.npz` holds the JAX package's outputs and
+    gradients on its scene bit for bit, and the port's plain `preprocess` on
+    the CPU lies within the tolerances the card's kernel pair is held to."""
+    import dataclasses
+
+    import test_torch_preprocess as tp
+
+    want = jax_preprocess_reference()
+    ref = np.load(tp.REFERENCE)
+    assert sorted(ref.files) == sorted(want)
+    for k, v in want.items():
+        assert ref[k].dtype == v.dtype and np.array_equal(ref[k], v), k
+    cam, leaves, active = tp.preprocess_scene(tp.REF_SEED, "cpu", "sh", n=tp.REF_N)
+    cam = dataclasses.replace(cam, world_view=torch.as_tensor(ref["world_view"]),
+                              full_proj=torch.as_tensor(ref["full_proj"]))
+    pre = tp.run_project(trz.preprocess, cam, leaves, active, tconf.RasterizeConfig())
+    tp.assert_near_reference(pre, tp.reference_grads(pre, leaves, ref), ref)
+
+
+if __name__ == "__main__":  # writes the reference file
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_preprocess as tp
+
+    os.makedirs(os.path.dirname(tp.REFERENCE), exist_ok=True)
+    np.savez_compressed(tp.REFERENCE, **jax_preprocess_reference())
