@@ -73,8 +73,8 @@ def mask_generator(args, cfg, device):
     """run-slam's mask generator from `--mask-backend`: geometric clusters,
     SAM with the shipped synthetic-trained weights, or, at their published
     widths with weights drawn from the config's seed, MobileSAM (its
-    TinyViT encoder) or MobileSAMv2's EfficientViT-SAM-L2 encoder behind
-    the same decoder (no checkpoint is in the repository;
+    TinyViT encoder), MobileSAMv2's EfficientViT-SAM-L2 encoder or SAM's
+    ViT-H encoder behind the same decoder (no checkpoint is in the repository;
     `models.mobile_sam.load_checkpoint` loads one)."""
     if args.mask_backend == "geometric":
         from sags_tpu_torch.semantics.geometric import GeometricMaskGenerator
@@ -83,7 +83,7 @@ def mask_generator(args, cfg, device):
     from sags_tpu_torch.semantics.masks import MaskGenerator
 
     sam = None
-    if args.mask_backend in ("mobile_sam", "efficientvit_l2"):
+    if args.mask_backend in ("mobile_sam", "efficientvit_l2", "sam_vit_h"):
         from sags_tpu_torch.models.mobile_sam import MobileSAM, MobileSAMConfig
 
         encoder = "tiny_vit" if args.mask_backend == "mobile_sam" else args.mask_backend
@@ -533,7 +533,8 @@ def main(argv=None):
                     choices=["none", "gicp", "vgicp", "gicp_map", "esikf"])
     sp.add_argument("--semantics", action="store_true")
     sp.add_argument("--mask-backend", default="geometric",
-                    choices=["geometric", "sam", "mobile_sam", "efficientvit_l2"])
+                    choices=["geometric", "sam", "mobile_sam", "efficientvit_l2",
+                             "sam_vit_h"])
     sp.add_argument("--port", type=int, default=7011,
                     help="TCP port for --dataset socket (io/stream.py)")
     sp.add_argument("--post-train", type=int, default=None)

@@ -21,9 +21,10 @@ TF32 off on the card (`resolve_device`).
     IoU head; `multimask_output=False` keeps mask 0 and IoU 0.
 
 `MobileSAMConfig.encoder` selects the image encoder: TinyViT (the
-default, above) or EfficientViT-SAM-L2 (`"efficientvit_l2"`,
-`models/efficientvit_sam.py`), MobileSAMv2's default encoder, in front of
-the same prompt encoder, decoder and predictor.
+default, above), EfficientViT-SAM-L2 (`"efficientvit_l2"`,
+`models/efficientvit_sam.py`), MobileSAMv2's default encoder, or SAM's own
+ViT-H (`"sam_vit_h"`, `models/sam_vit.py`), in front of the same prompt
+encoder, decoder and predictor.
 
 Parameter names follow MobileSAM's `state_dict`, so a published checkpoint
 loads with `load_checkpoint` (it drops the classification head and the mask
@@ -69,9 +70,10 @@ UNUSED_PREFIXES = ("image_encoder.norm_head.", "image_encoder.head.",
 class MobileSAMConfig:
     """`build_sam_vit_t`'s numbers (the defaults) or a reduced copy for tests;
     with `encoder="efficientvit_l2"`, `efficientvit_sam_l2`'s encoder (its
-    numbers the defaults of the second group) in TinyViT's place."""
+    numbers the defaults of the second group), with `encoder="sam_vit_h"`,
+    `build_sam_vit_h`'s (the third group), in TinyViT's place."""
 
-    encoder: str = "tiny_vit"  # or "efficientvit_l2"
+    encoder: str = "tiny_vit"  # or "efficientvit_l2" or "sam_vit_h"
     img_size: int = 1024
     embed_dims: Tuple[int, ...] = (64, 128, 160, 320)
     depths: Tuple[int, ...] = (2, 2, 6, 2)
@@ -89,6 +91,14 @@ class MobileSAMConfig:
     neck_width: int = 256
     neck_depth: int = 12
     neck_expand_ratio: float = 1.0
+    # SAM's ViT-H (`build_sam_vit_h`, `ImageEncoderViT`)
+    vit_embed_dim: int = 1280
+    vit_depth: int = 32
+    vit_num_heads: int = 16
+    vit_global_attn_indexes: Tuple[int, ...] = (7, 15, 23, 31)
+    vit_window_size: int = 14
+    vit_patch_size: int = 16
+    vit_mlp_ratio: float = 4.0
     # SAM's prompt encoder and mask decoder
     prompt_embed_dim: int = 256
     decoder_depth: int = 2
@@ -102,7 +112,7 @@ class MobileSAMConfig:
     @property
     def grid(self) -> int:
         """Side of the image embedding."""
-        return self.img_size // 16
+        return self.img_size // (self.vit_patch_size if self.encoder == "sam_vit_h" else 16)
 
 
 # -- the encoder: TinyViT ------------------------------------------------------
@@ -139,6 +149,13 @@ class LayerNorm2d(nn.Module):
         s = (x - u).pow(2).mean(1, keepdim=True)
         x = (x - u) / torch.sqrt(s + self.eps)
         return self.weight[:, None, None] * x + self.bias[:, None, None]
+
+
+def sam_neck(c_in: int, p: int) -> nn.Sequential:
+    """SAM's neck, shared by TinyViT and ViT-H: conv 1x1, LayerNorm2d,
+    conv 3x3, LayerNorm2d, the convolutions without bias."""
+    return nn.Sequential(nn.Conv2d(c_in, p, 1, bias=False), LayerNorm2d(p),
+                         nn.Conv2d(p, p, 3, padding=1, bias=False), LayerNorm2d(p))
 
 
 class PatchEmbed(nn.Module):
@@ -272,9 +289,7 @@ class TinyViT(nn.Module):
                                        c.local_conv_size) for _ in range(c.depths[i])]
             layers.append(Stage(blocks, down))
         self.layers = nn.ModuleList(layers)
-        p = c.prompt_embed_dim
-        self.neck = nn.Sequential(nn.Conv2d(d[-1], p, 1, bias=False), LayerNorm2d(p),
-                                  nn.Conv2d(p, p, 3, padding=1, bias=False), LayerNorm2d(p))
+        self.neck = sam_neck(d[-1], c.prompt_embed_dim)
 
     def forward(self, x):  # [B,3,S,S] normalised canvas -> [B,P,S/16,S/16]
         x = self.patch_embed(x)
@@ -299,6 +314,10 @@ def image_encoder(c: MobileSAMConfig) -> nn.Module:
         from sags_tpu_torch.models.efficientvit_sam import EfficientViTSamImageEncoder
 
         return EfficientViTSamImageEncoder(c)
+    if c.encoder == "sam_vit_h":
+        from sags_tpu_torch.models.sam_vit import ImageEncoderViT
+
+        return ImageEncoderViT(c)
     raise ValueError(f"no image encoder {c.encoder!r}")
 
 
@@ -362,13 +381,17 @@ class Attention(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    """SAM's `MLPBlock`: lin1, `act`, lin2 (ReLU in the decoder, exact GELU
+    in ViT-H's blocks)."""
+
+    def __init__(self, dim: int, hidden: int, act=F.relu):
         super().__init__()
         self.lin1 = nn.Linear(dim, hidden)
         self.lin2 = nn.Linear(hidden, dim)
+        self.act = act
 
     def forward(self, x):
-        return self.lin2(F.relu(self.lin1(x)))
+        return self.lin2(self.act(self.lin1(x)))
 
 
 class TwoWayAttentionBlock(nn.Module):
@@ -479,8 +502,12 @@ def init_params(model: "MobileSAM", seed: int = 0) -> None:
     normal with variance 1/fan_in, biases and LayerNorm shifts normal(0.02),
     LayerNorm scales 1 + normal(0.02), BatchNorm scales and running
     variances uniform in [0.5, 1.5], its shifts and running means
-    normal(0.1), attention biases normal(0.5), embeddings and the Fourier
-    matrix normal(1)."""
+    normal(0.1), attention biases normal(0.5), ViT-H's relative-position
+    tables and absolute position embedding normal(0.1), embeddings and the
+    Fourier matrix normal(1)."""
+    # imported here: `sam_vit` imports this module's config, norm and neck
+    from sags_tpu_torch.models.sam_vit import ImageEncoderViT, ViTAttention
+
     g = torch.Generator().manual_seed(int(seed))
     normal = lambda t, std, mean=0.0: t.copy_(mean + std * torch.randn(t.shape, generator=g))
     uniform = lambda t, lo, hi: t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
@@ -503,6 +530,11 @@ def init_params(model: "MobileSAM", seed: int = 0) -> None:
             normal(m.attention_biases, 0.5)
         elif isinstance(m, PositionEmbeddingRandom):
             normal(m.positional_encoding_gaussian_matrix, 1.0)
+        elif isinstance(m, ViTAttention):
+            normal(m.rel_pos_h, 0.1)
+            normal(m.rel_pos_w, 0.1)
+        elif isinstance(m, ImageEncoderViT):
+            normal(m.pos_embed, 0.1)
         if isinstance(getattr(m, "bias", None), torch.Tensor):
             normal(m.bias, 0.02)
 

@@ -9,8 +9,9 @@ proposals and labelling are numpy on the host, as in the JAX package.
 
 The model is the JAX package's SAM-style stand-in (`models/sam.py`, the
 default) or MobileSAM at its published widths (`models/mobile_sam.py`),
-whose encoder is TinyViT or, MobileSAMv2's default, EfficientViT-SAM-L2
-(`models/efficientvit_sam.py`, with its own spans inside `sam.encode`).
+whose encoder is TinyViT, MobileSAMv2's default EfficientViT-SAM-L2
+(`models/efficientvit_sam.py`) or SAM's ViT-H (`models/sam_vit.py`), the
+last two with their own spans inside `sam.encode`.
 Spans (`utils/profiling.py`): `segment.boxes` (the proposals on the host,
 counter `segment.boxes`), `sam.encode` (device), `sam.decode` (device, one a
 batch of boxes, the upscaling to the frame included) and `segment.paint`
