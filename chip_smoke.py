@@ -61,7 +61,13 @@ Phases, each failing the run (non-zero exit, no result line):
        degree 0 with the densification probe: every output bit for bit the
        plain `preprocess`'s, every gradient within 1e-6 of its leaf's norm of
        autograd's through it; the forward's time and the pair's beside their
-       byte bound and the plain version with its autograd backward.
+       byte bound and the plain version with its autograd backward;
+     - the surfel covariances (a kernel that replaces no TPU kernel) on the
+       corridor's source scan at the stream's shape (4096 points, k = 10,
+       `normalized_ellipse`): each row's covariance and R S^2 R^T within
+       1e-5 relative of the plain version's on the card (rows at a
+       neighbour tie left out); its time beside the plain version's and
+       the bound of its neighbourhood pass.
 The line before the last, `{"kernels": [...]}`, holds one row a kernel:
 its `ms` and `library_ms`, device time from a CUDA graph of its launches
 (`graph_ms`); its `stream_ms` and `plain_ms`, back-to-back launches from
@@ -1177,6 +1183,60 @@ def gicp_align_phase(device, shape=GICP_SHAPE, seed=0) -> dict:
     return r
 
 
+# the stream cells' surfel covariances: 4096 scan points, their 10 nearest
+COVARIANCES_SHAPE = (4096, 10)
+# bytes a point the covariance kernel must move: its position and mask
+# read, its covariance, quaternion and scales written
+COVARIANCE_POINT_BYTES = 12 + 1 + 36 + 16 + 12
+
+
+def covariances_phase(device, shape=COVARIANCES_SHAPE, seed=0) -> dict:
+    """The covariance kernel (`gicp.estimate_covariances_kernel`: a kernel
+    that replaces no TPU kernel) against its plain version
+    (`estimate_covariances_plain` on the card) on the source scan of
+    `corridor_scans` at `shape` (points, k), every point valid, under the
+    stream's `normalized_ellipse`: the largest relative Frobenius gap of a
+    row's covariance and of its R S^2 R^T within 1e-5 (`max_abs_err`), rows
+    whose plain k-th and (k+1)-th squared distances tie within 1e-5 relative
+    left out (`tie_rows`, expected 0); its time from a CUDA graph and from
+    back-to-back launches, the plain version's; the bound: the neighbourhood
+    pass's operations (`NN_OPS` a distance) against the bytes each point
+    must move."""
+    import torch
+
+    from sags_tpu_torch.core.transforms import quat_scale_to_cov
+    from sags_tpu_torch.ops import gicp
+    from sags_tpu_torch.ops.knn import knn
+
+    n, k = shape
+    pts = torch.as_tensor(corridor_scans(seed, n, 16)[0], device=device)
+    mask = torch.ones(n, dtype=torch.bool, device=device)
+    run = lambda: gicp.estimate_covariances_kernel(pts, mask, k)
+    got = run()
+    want = gicp.estimate_covariances_plain(pts, mask, k)
+    d2, _ = knn(pts, pts, k=k + 1, chunk=1024)
+    ties = (d2[:, k] - d2[:, k - 1]) <= 1e-5 * torch.clamp(d2[:, k - 1], min=1e-30)
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return torch.linalg.matrix_norm(a - b) / torch.linalg.matrix_norm(b)
+
+    gaps = torch.maximum(rel(got.covs, want.covs),
+                         rel(quat_scale_to_cov(got.scales, got.quats),
+                             quat_scale_to_cov(want.scales, want.quats)))
+    gap = float(gaps[~ties].max())
+    assert gap <= 1e-5, f"the covariance kernel is {gap} from its plain version"
+    ops = NN_OPS * n * n
+    n_bytes = COVARIANCE_POINT_BYTES * n
+    r = {"ms": graph_ms(run, reps=100, replays=5), "stream_ms": cuda_ms(run, 100),
+         "plain_ms": cuda_ms(lambda: gicp.estimate_covariances_plain(pts, mask, k), 10),
+         "ops": ops, "bytes": n_bytes, "max_abs_err": gap, "tie_rows": int(ties.sum()),
+         "bitwise_rows": int((got.covs == want.covs).flatten(1).all(1).sum()),
+         "shape": list(shape)}
+    emit({"phase": "covariances", **r})
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -1209,6 +1269,7 @@ def main() -> int:
     wres = windowed_kernel_phase(device, stops=stops)
     gres = gicp_align_phase(device)
     pres = preprocess_phase(device)
+    cres = covariances_phase(device)
 
     # (source, TPU kernel) of each row, in the table's order
     src = {"fill_table": ("sags_tpu_torch/csrc/fill_table.cu",
@@ -1230,9 +1291,11 @@ def main() -> int:
            # replaces no TPU kernel: the JAX package leaves the LM loop to XLA
            "gicp_align": ("sags_tpu_torch/csrc/gicp_align.cu", None),
            # replaces no TPU kernel: the JAX package leaves preprocess to XLA
-           "preprocess": ("sags_tpu_torch/csrc/preprocess.cu", None)}
+           "preprocess": ("sags_tpu_torch/csrc/preprocess.cu", None),
+           # replaces no TPU kernel: the JAX package leaves the covariances to XLA
+           "covariances": ("sags_tpu_torch/csrc/covariances.cu", None)}
     rows = dict(kres[TABLE_CAPACITY], **wres, expand_pairs=xres[EXPAND_CASES[0]],
-                gicp_align=gres, preprocess=pres[PREPROCESS_SIZES[0]])
+                gicp_align=gres, preprocess=pres[PREPROCESS_SIZES[0]], covariances=cres)
     kernels = []
     for name, (path, replaces) in src.items():
         r = rows[name]

@@ -127,14 +127,14 @@ def sym_eig3(A: torch.Tensor):
     return evals, evecs
 
 
-def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, k: int = 10,
-                         knn_max_distance: float = 0.5,
-                         regularization: str = "normalized_ellipse",
-                         z_values: Optional[torch.Tensor] = None) -> PointCovariances:
+def estimate_covariances_plain(points: torch.Tensor, mask: torch.Tensor, k: int = 10,
+                               knn_max_distance: float = 0.5,
+                               regularization: str = "normalized_ellipse",
+                               z_values: Optional[torch.Tensor] = None) -> PointCovariances:
     """Per-point surfel covariance + (quat, scale) export
     (`fast_gicp_impl.hpp:380-479`; gates and divisor as in the JAX package).
     `z_values` [N] divides the scales as `calculate_covariances_withz` does
-    (`:534-538`)."""
+    (`:534-538`). The kernel's plain version, on any device."""
     far = torch.where(mask[:, None], points, torch.full_like(points, 1e10))
     sq_d, idx = knn(far, far, k=k, chunk=1024)
     nbr = points[idx]
@@ -179,6 +179,68 @@ def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, k: int = 10,
     eye = torch.eye(3, device=points.device).expand_as(covs)
     covs = torch.where(mask[:, None, None], covs, eye)
     return PointCovariances(covs=covs, quats=quats, scales=scales)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+COVARIANCES = CudaKernel("covariances.cu", "sags_covariances",
+                         [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 4, flags=("-fmad=false",))
+REGULARIZATIONS = ("none", "frobenius", "plane", "min_eig", "normalized_min_eig",
+                   "normalized_ellipse")  # the kernel's codes, in order
+COVARIANCES_MAX_K = 32  # `sags_covariances_max_k()`
+
+
+def estimate_covariances_kernel(points: torch.Tensor, mask: torch.Tensor, k: int = 10,
+                                knn_max_distance: float = 0.5,
+                                regularization: str = "normalized_ellipse",
+                                z_values: Optional[torch.Tensor] = None) -> PointCovariances:
+    """`estimate_covariances_plain` in one launch of `COVARIANCES` on the
+    card (`csrc/covariances.cu`), with no host read. Takes contiguous float32
+    points [N,3], a bool mask [N] and float32 `z_values` [N] on one CUDA
+    device, and 1 <= k <= min(N, `COVARIANCES_MAX_K`)."""
+    if regularization not in REGULARIZATIONS:
+        raise ValueError(f"unknown regularization {regularization!r}")
+    N = points.shape[0]
+    if points.shape != (N, 3) or mask.shape != (N,) or (
+            z_values is not None and z_values.shape != (N,)):
+        raise ValueError("estimate_covariances: expected points [N,3], mask [N], z_values [N]")
+    if not 1 <= k <= COVARIANCES_MAX_K or (N > 0 and k > N):
+        raise ValueError(f"estimate_covariances: the kernel takes 1 <= k <= "
+                         f"min(N, {COVARIANCES_MAX_K}), got k = {k} at N = {N}")
+    inputs = (points, mask) if z_values is None else (points, mask, z_values)
+    want = (torch.float32, torch.bool, torch.float32)
+    if any(t.dtype != w for t, w in zip(inputs, want)):
+        raise TypeError("estimate_covariances: the kernel takes float32 points and z_values "
+                        "and a bool mask")
+    if not all(t.is_contiguous() for t in inputs):
+        raise ValueError("estimate_covariances: the kernel takes contiguous inputs")
+    dev = points.device
+    if dev.type != "cuda" or any(t.device != dev for t in inputs):
+        raise ValueError("estimate_covariances: the kernel takes every input on one CUDA device")
+    covs = torch.empty((N, 3, 3), dtype=torch.float32, device=dev)
+    quats = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    scales = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    if N > 0:
+        COVARIANCES.launch(points.data_ptr(), mask.data_ptr(),
+                           None if z_values is None else z_values.data_ptr(), N, k,
+                           REGULARIZATIONS.index(regularization), knn_max_distance, 1.0 / k,
+                           covs.data_ptr(), quats.data_ptr(), scales.data_ptr(),
+                           stream_ptr(dev))
+    return PointCovariances(covs=covs, quats=quats, scales=scales)
+
+
+def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, k: int = 10,
+                         knn_max_distance: float = 0.5,
+                         regularization: str = "normalized_ellipse",
+                         z_values: Optional[torch.Tensor] = None) -> PointCovariances:
+    """Per-point surfel covariances, quaternions (xyzw) and scales: on the
+    CPU `estimate_covariances_plain`, on CUDA `estimate_covariances_kernel`
+    (one launch, no host read; no fallback)."""
+    args = (points, mask, k, knn_max_distance, regularization, z_values)
+    if points.device.type == "cpu":
+        return estimate_covariances_plain(*args)
+    if points.device.type != "cuda":
+        raise ValueError(f"estimate_covariances: no path for device {points.device}")
+    return estimate_covariances_kernel(*args)
 
 
 def covariances_from_qs(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -597,7 +659,6 @@ def lsq_align(linearize, error_fn, init_T: torch.Tensor, cfg: GICPConfig,
     return AlignResult(T, H, converged, i, e, n_lm)
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ALIGN = CudaKernel("gicp_align.cu", "sags_gicp_align",
                    [_P] * 7 + [_I, _I, _F, _I, _I, _I, _F, _F, _F] + [_P] * 6)
 _CORR_COLS = 13  # the kernel's scratch row a source point: w, mean_B, M

@@ -1193,7 +1193,10 @@ def test_slam_loop_on_the_card_launches_each_kernel_once_a_step(device, frontend
     front-end's host row, and each kernel of the render path launched once
     a training step; the windowed path never launches the classic
     compositors. The "gicp" tracker's align kernel launches once a tracked
-    frame (every frame but the first), in either front-end."""
+    frame (every frame but the first), in either front-end, and the
+    covariance kernel once a frame for each `estimate_covariances` call:
+    twice in the fused front-end with `surfel_init` (tracking and the new
+    points' surfels), once in the per-module front-end (tracking)."""
     from sags_tpu_torch.slam.pipeline import SLAMPipeline
     from torch_support import launch_counts
 
@@ -1212,6 +1215,9 @@ def test_slam_loop_on_the_card_launches_each_kernel_once_a_step(device, frontend
     if path == "windowed":
         assert counts["sags_composite_fused"] == counts["sags_composite_fused_bwd"] == 0
     assert counts["sags_gicp_align"] == len(frames) - 1 == len(pipe.lm_log), counts
+    assert cfg.map.surfel_init
+    calls = 2 if frontend == "fused" else 1
+    assert counts["sags_covariances"] == calls * len(frames), counts
 
 
 # the functions a sync is charged to: the innermost of these on its stack
